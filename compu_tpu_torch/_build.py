@@ -28,16 +28,19 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 #: Kernel launches per kernel name since the last reset_launch_counts().
-LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0}
+LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
+            "match_candidates": 0, "adler_tiles": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "compu_lcp_candidates": (_P, _I, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "compu_parse_cover": (_P, _P, _LL, _P),
     "compu_emit_pack": (_P, _P, _P, _LL, _I, _P),
+    "compu_match_candidates": (_P, _P, _P, _I, _P, _P, _LL, _LL, _I, _I, _P),
+    "compu_adler_tiles": (_P, _P, _LL, _P),
 }
 
 
@@ -73,24 +76,35 @@ def _nvcc() -> str:
 
 def build() -> pathlib.Path:
     """Compile the kernels unless this exact build exists; return its path.
-    The library is written under a temporary name and renamed into place,
-    so concurrent builders never load a half-written file."""
+    Each source compiles in its own nvcc, all started together, and one
+    more links them. The library is written in a temporary directory and
+    renamed into place, so a process building at the same time never loads
+    a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [(src, subprocess.Popen(
+                     [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                 for src, obj in zip(sources(), objs)]
+        failed = []
+        for src, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(f"{src.name}: nvcc failed ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib_tmp = pathlib.Path(tmp) / out.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib_tmp),
+                               *map(str, objs)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(lib_tmp, out)
     return out
 
 

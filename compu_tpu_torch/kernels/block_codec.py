@@ -27,7 +27,8 @@ DEV_STRIDE = {1: 2, 2: 2, 3: 2, 4: 1, 5: 1, 6: 1, 7: 1, 8: 1, 9: 1}
 
 def _encode_blocks_batched(blocks: torch.Tensor, lens: torch.Tensor, *,
                            depth: int, with_index: bool, check: str,
-                           wcap: int = 32, stride: int = 1, lex_keys: int = 2):
+                           wcap: int = 32, stride: int = 1, lex_keys: int = 2,
+                           matcher: str = "lex"):
     """Encode a (B, N) block matrix and compact it on the device.
 
     Returns ``(packed (B*cap + cap,) uint8, metas (B, 2) int32,
@@ -35,7 +36,7 @@ def _encode_blocks_batched(blocks: torch.Tensor, lens: torch.Tensor, *,
     defined: block i's bytes at offset ``sum(lens[:i])``."""
     res = encode_blocks_dyn(blocks, lens, depth=depth, with_index=with_index,
                             check=check, wcap=wcap, stride=stride,
-                            lex_keys=lex_keys)
+                            lex_keys=lex_keys, matcher=matcher)
     outs, metas = res[0], res[1]
     B, cap = outs.shape
     out_lens = metas[:, 0].to(torch.int64)

@@ -1,12 +1,13 @@
-"""Shared device LZ stage: lexicographic matching, run extension, exact
-greedy cover and the merge across segment boundaries.
+"""Shared device LZ stage: lexicographic or hash-bucket matching, run
+extension, exact greedy cover and the merge across segment boundaries.
 
-Port of the lex-matcher path of ``compu_tpu/kernels/deflate_jax_v2.py``
-(``_u32_words``, ``_post_match``, ``_merge_seg_boundaries``,
-``cover_overflow``, ``match_and_parse_batch``). Every function takes a
-leading block dimension where the reference was vmapped; the candidate and
-cover stages run once over the flattened batch, through the device dispatch
-of ``lcp_match`` and ``parse_cover``. Integers are int64 throughout.
+Port of ``compu_tpu/kernels/deflate_jax_v2.py`` (``_u32_words``,
+``_sort_stage``, ``_post_match``, ``_merge_seg_boundaries``,
+``cover_overflow``, ``match_and_parse``, ``match_and_parse_batch``). Every
+function takes a leading block dimension where the reference was vmapped;
+the candidate and cover stages run once over the flattened batch, through
+the device dispatch of ``lcp_match``, ``match_candidates`` and
+``parse_cover``. Integers are int64 throughout.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ from compu_tpu.formats.deflate import consts
 
 from . import u32
 from .lcp_match import lcp_candidates, sort_stage_lex
+from .match_candidates import match_candidates
 from .parse_cover import parse_cover
 
 SEG = 128          # cover segment; the indexed decoder's segment
 WCAP = 32          # default bytes measured per candidate
 MAX_LEN = consts.MAX_MATCH
+HASH_MUL = 2654435761  # the 3-byte hash's multiplier, as _sort_stage's
 
 
 def _u32_words(data: torch.Tensor, k: int) -> torch.Tensor:
@@ -33,6 +36,24 @@ def _u32_words(data: torch.Tensor, k: int) -> torch.Tensor:
             | (torch.roll(u, -(4 * k + 1), -1) << 8)
             | (torch.roll(u, -(4 * k + 2), -1) << 16)
             | (torch.roll(u, -(4 * k + 3), -1) << 24))
+
+
+def _sort_stage(datas: torch.Tensor, ns: torch.Tensor, *, wcap: int) -> list[torch.Tensor]:
+    """Per-block stable sort by the 3-byte multiplicative hash.
+
+    ``datas`` (B, N) uint8, ``ns`` (B,) -> ``[hs, ps, w0, ..., w_{wcap/4-1}]``,
+    each (B, N) int64 in sort order: the hash, the position and the
+    little-endian window words. Positions from n-2 on get the unique key
+    ``0x10000 + pos``, so they never match."""
+    B, N = datas.shape
+    pos = torch.arange(N, device=datas.device, dtype=torch.int64).expand(B, N)
+    d0 = datas.to(torch.int64)
+    v3 = d0 | (torch.roll(d0, -1, -1) << 8) | (torch.roll(d0, -2, -1) << 16)
+    h = ((v3 * HASH_MUL) & u32.MASK32) >> 16
+    h = torch.where(pos < ns.to(torch.int64)[:, None] - 2, h, 0x10000 + pos)
+    words = [_u32_words(datas, k) for k in range(wcap // 4)]
+    _, order = torch.sort(h, dim=-1, stable=True)
+    return [x.gather(-1, order) for x in [h, pos, *words]]
 
 
 def _post_match(datas, ns, ps, best_len_s, best_dist_s, *, wcap: int,
@@ -167,17 +188,30 @@ def cover_overflow(is_tok, best_len):
 
 def match_and_parse_batch(datas: torch.Tensor, ns: torch.Tensor, *,
                           depth: int = 8, wcap: int = WCAP, stride: int = 1,
-                          lex_keys: int = 2):
+                          lex_keys: int = 2, matcher: str = "lex"):
     """The LZ stage over a (B, N) uint8 block matrix with (B,) lengths.
-    Returns (is_tok bool, best_len int64, best_dist int64), each (B, N)."""
+    Returns (is_tok bool, best_len int64, best_dist int64), each (B, N).
+
+    ``matcher="lex"`` sorts windows lexicographically (``lcp_match``);
+    ``"hash"`` sorts by the 3-byte hash (``match_candidates``), and then,
+    as the reference, always takes stride 1 and ignores ``lex_keys``."""
     B, N = datas.shape
     ns = ns.to(torch.int64)
-    *wbe, ps = sort_stage_lex(datas, wcap=wcap, keys=lex_keys, stride=stride)
-    words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in wbe]))
-    bl_f, bd_f = lcp_candidates(
-        words, ps.reshape(-1).to(torch.int32), depth=depth,
-        max_dist=consts.WINDOW_SIZE,
-        block_elems=N // stride)
+    if matcher == "lex":
+        *wbe, ps = sort_stage_lex(datas, wcap=wcap, keys=lex_keys, stride=stride)
+        words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in wbe]))
+        bl_f, bd_f = lcp_candidates(
+            words, ps.reshape(-1).to(torch.int32), depth=depth,
+            max_dist=consts.WINDOW_SIZE, block_elems=N // stride)
+    elif matcher == "hash":
+        stride = 1
+        hs, ps, *sw = _sort_stage(datas, ns, wcap=wcap)
+        words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in sw]))
+        bl_f, bd_f = match_candidates(
+            hs.reshape(-1).to(torch.int32), ps.reshape(-1).to(torch.int32), words,
+            depth=depth, max_dist=consts.WINDOW_SIZE, block_elems=N)
+    else:
+        raise ValueError(f"matcher must be 'lex' or 'hash', got {matcher!r}")
     best_len_s = bl_f.reshape(B, N // stride).to(torch.int64)
     best_dist_s = bd_f.reshape(B, N // stride).to(torch.int64)
     step_arr, best_len, best_dist, in_range, uncl = _post_match(
@@ -185,3 +219,10 @@ def match_and_parse_batch(datas: torch.Tensor, ns: torch.Tensor, *,
     is_tok = parse_cover(step_arr.reshape(-1)).reshape(B, N) & in_range
     is_tok, best_len = _merge_seg_boundaries(is_tok, best_len, best_dist, ns, uncl)
     return is_tok, best_len, best_dist
+
+
+def match_and_parse(data: torch.Tensor, n, **kw):
+    """Single-block form of :func:`match_and_parse_batch`: (N,) uint8 and a
+    length -> (is_tok, best_len, best_dist), each (N,)."""
+    ns = torch.as_tensor(n, dtype=torch.int64, device=data.device).reshape(1)
+    return tuple(r[0] for r in match_and_parse_batch(data[None], ns, **kw))

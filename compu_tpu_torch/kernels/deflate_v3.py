@@ -383,9 +383,9 @@ def _block_checksum(datas: torch.Tensor, ns: torch.Tensor, check: str) -> torch.
 def encode_blocks_dyn(blocks: torch.Tensor, lens: torch.Tensor, *,
                       depth: int = 8, with_index: bool = False,
                       check: str = "adler", wcap: int = 32, stride: int = 1,
-                      lex_keys: int = 2):
-    """Encode a (B, N) uint8 block matrix with (B,) lengths (the lex
-    matcher; the hash matcher is ROADMAP A11).
+                      lex_keys: int = 2, matcher: str = "lex"):
+    """Encode a (B, N) uint8 block matrix with (B,) lengths, matching with
+    the lex or the hash matcher (``deflate_v2.match_and_parse_batch``).
 
     Returns ``(outs (B, cap) uint8, metas (B, 2) int32)`` and, with
     ``with_index``, ``seg_bits (B, N/128) int32``, where
@@ -397,7 +397,8 @@ def encode_blocks_dyn(blocks: torch.Tensor, lens: torch.Tensor, *,
     cap = N + N // 4 + 64
     ns = lens.to(torch.int64)
     is_tok, best_len, best_dist = match_and_parse_batch(
-        blocks, ns, depth=depth, wcap=wcap, stride=stride, lex_keys=lex_keys)
+        blocks, ns, depth=depth, wcap=wcap, stride=stride, lex_keys=lex_keys,
+        matcher=matcher)
     tok, lf, df, xl, xd = _tok_hist_from_match(blocks, ns, is_tok, best_len, best_dist)
     chks = _block_checksum(blocks, ns, check)
     tables = _build_tables(lf, df, xl, xd, ns)

@@ -81,6 +81,11 @@ def _adj_from_words(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def _check_args(depth: int, block_elems: int, n: int) -> None:
     if not 1 <= depth < HALO:
         raise ValueError(f"depth must be in [1, {HALO}), got {depth}")
+    check_blocks(block_elems, n)
+
+
+def check_blocks(block_elems: int, n: int) -> None:
+    """Raise unless ``n`` flat lanes are whole blocks of a power of two."""
     if block_elems <= 0 or block_elems & (block_elems - 1):
         raise ValueError(f"block_elems must be a power of two, got {block_elems}")
     if n % block_elems:

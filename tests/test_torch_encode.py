@@ -48,11 +48,16 @@ PAIRS = [("text", "random"), ("runs", "low_entropy"), ("records", "tiny"),
          ("mixed", "text"), ("empty", "one"), ("seg_plus_one", "runs")]
 
 # Level 6 and level 1 of the block ladder (gzip, with the segment index),
-# and the zlib device stream's call (depth 8, the kernel's defaults).
+# the zlib device stream's call (depth 8, the kernel's defaults), the hash
+# matcher at wcap 32, depth 16 (zlib, and gzip with the segment index), and
+# the hash matcher at scripts/time_lex.py's wcap 16, depth 32, check crc.
 CONFIGS = {
     "level6": dict(depth=16, wcap=16, lex_keys=2, stride=1, check="crc", with_index=True),
     "level1": dict(depth=4, wcap=8, lex_keys=1, stride=2, check="adler", with_index=True),
     "zlib_device": dict(depth=8, check="adler"),
+    "hash_zlib": dict(matcher="hash", depth=16, wcap=32, check="adler"),
+    "hash_gzip_index": dict(matcher="hash", depth=16, wcap=32, check="crc", with_index=True),
+    "hash_time_lex": dict(matcher="hash", depth=32, wcap=16, check="crc"),
 }
 
 
