@@ -4,8 +4,9 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives four paths of the port over the 16 MB ``bench.build_corpus`` mix
-(64 blocks of 256 KiB, in 4 groups of 16):
+Drives four paths of the port over the 16 MB benchmark corpus
+(``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
+4 groups of 16):
 
 * **gzip_lex**, the flagship deployment: level-6 gzip with the segment
   index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``;
@@ -24,7 +25,12 @@ failure:
 2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
 3. hold each kernel to its plain twin at each of its paths' shapes (the
    first 16 blocks; the adler tiles over the whole corpus in one launch),
-   exactly, and time both with CUDA events;
+   exactly, and time both with CUDA events: k back-to-back launches between
+   one pair of events, divided by k, the median of 5 such runs (see
+   ``device_ms``). Each kernel's bound is the larger of the bytes it must
+   move over the card's memory rate and the integer operations it must do
+   over the card's INT32 rate, both counted from this run's inputs (B1's
+   cost per candidate read from the built kernel's SASS, ``cuobjdump``);
 4. encode the corpus end to end on each encode path (one warm run, median
    of three each), check that zlib gives the corpus back, every block
    status is ok, and the path launched its kernels;
@@ -35,7 +41,12 @@ failure:
 7. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
 
 The last two lines printed are the kernel report and the result, each one
-JSON object. Without a CUDA device it fails and prints no result.
+JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
+(with the ``bytes`` and ``ops`` it counts), ``bound_by``,
+``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
+``launches_per_encode``, and ``library_ms`` null with the reason: no one
+PyTorch call computes any of the five functions. Without a CUDA device it
+fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path
 once with every stage synchronised before and after (ms per stage), and
@@ -46,7 +57,11 @@ and prints the idle share of the profiled wall time, one JSON line a path.
 
 from __future__ import annotations
 
+import collections
 import json
+import math
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +71,6 @@ import zlib
 import numpy as np
 import torch
 
-from bench import build_corpus
 from compu_tpu_torch import BlockParallelEncoder, ZlibMode, ZlibOptions, _build
 from compu_tpu_torch import make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
@@ -82,6 +96,7 @@ from compu_tpu_torch.kernels.deflate_v3 import (
 )
 from compu_tpu_torch.kernels.emit_pack import emit_pack_cuda, emit_pack_torch
 from compu_tpu_torch.kernels.lcp_match import (
+    _adj_from_words,
     lcp_candidates_cuda,
     lcp_candidates_torch,
     sort_stage_lex,
@@ -91,6 +106,7 @@ from compu_tpu_torch.kernels.match_candidates import (
     match_candidates_torch,
 )
 from compu_tpu_torch.kernels.parse_cover import jump_targets, parse_cover_cuda, parse_cover_torch
+from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
 
 LEVEL = 6
 BLOCK = 1 << 18
@@ -113,24 +129,167 @@ PATHS = {
     "adler_device": ("adler_tiles",),
 }
 
+# The card's rates the bounds are taken against: the H100 SXM's device
+# memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All five kernels do
+# integer work outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Launches timed back to back cycle through enough copies of the inputs
+# that each launch reads at least this many bytes no launch since its
+# last use has touched (twice the 50 MB L2), so every launch reads its
+# inputs from device memory, as the bound assumes.
+COLD_BYTES = 100 << 20
+# The cost of one B1 candidate in the built kernel (lcp_candidate_cost),
+# read from its SASS once the library is built.
+LCP_COST: dict = {}
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# SASS opcodes by the pipe that runs them on the H100. Per SM and clock:
+# ALU and FMA (IMAD and IMUL run there) 64 lanes each, the XU (leading
+# zeros, bit reverse, conversions) 16, and one warp instruction issued per
+# clock in each of the 4 partitions, 128 lanes in all, memory ones included.
+SASS_FMA = ("IMAD", "IMUL")
+SASS_XU = ("FLO", "POPC", "BREV", "MUFU", "I2F", "F2I", "I2I", "F2F")
+SASS_MEM = ("LD", "ST", "ATOM", "RED", "LDS", "STS", "LDG", "STG", "LDGSTS", "LDSM")
+SASS_SKIP = ("BRA", "BSSY", "BSYNC", "EXIT", "NOP", "BAR", "WARPSYNC", "CALL", "RET",
+             "YIELD", "DEPBAR", "S2R", "CS2R", "S2UR", "LDC", "BPT", "MEMBAR")
+
+
+def sass_counts(lib_path, symbol: str) -> collections.Counter:
+    """Instructions of one kernel of the built library by pipe, from
+    ``cuobjdump -sass`` (the CUDA toolkit that built it): ``alu``, ``fma``,
+    ``xu``, ``mem``; control, special-register and uniform-datapath
+    instructions are left out. ``symbol`` is a part of the mangled name."""
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, inside, found = collections.Counter(), False, 0
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+            found += inside
+            continue
+        m = inside and re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+                                 line)
+        if not m:
+            continue
+        op = m.group(1).split(".")[0]
+        if op in SASS_SKIP or op.startswith("U"):
+            continue
+        counts["fma" if op in SASS_FMA else "xu" if op in SASS_XU
+               else "mem" if op in SASS_MEM else "alu"] += 1
+    if not found or not counts:
+        raise AssertionError(f"no kernel {symbol} in the SASS of {lib_path.name}")
+    return collections.Counter({k: v / found for k, v in counts.items()})
+
+
+def lcp_candidate_cost(lib_path) -> dict:
+    """What one B1 candidate costs in the compiled kernel: the instructions
+    that ``lcp_kernel<16>`` has more than ``lcp_kernel<8>``, both unrolled,
+    over the 64 candidates a thread weighs more (4 lanes x 2 directions x
+    8 depths), so that staging, ``adj`` and the epilogue cancel. ``cost``
+    is the time of one candidate in INT32-lane issues (64 per SM and
+    clock): the busiest of the ALU, the FMA pipe, the XU (at a quarter of
+    the rate) and issue (at twice the rate)."""
+    c16 = sass_counts(lib_path, "lcp_kernelILi16E")
+    c8 = sass_counts(lib_path, "lcp_kernelILi8E")
+    per = {k: (c16[k] - c8[k]) / 64 for k in ("alu", "fma", "xu", "mem")}
+    per["cost"] = max(per["alu"], per["fma"], 4 * per["xu"], sum(per.values()) / 2)
+    return per
+
+
+# Work of each kernel on one call: (bytes, ops) from the inputs, keywords
+# and outputs. Bytes count each input once and each output once; ops count
+# the integer operations the function needs on these inputs, per unit:
+def lcp_work(args, kw, outs):
+    """Per lane and direction, the candidates until the running min of
+    ``adj`` is 0 (a candidate past it has length 0 and cannot win; the one
+    that finds the 0 counts), each at the compiled kernel's cost
+    (``LCP_COST``, from its SASS), and 3 ops per window word for ``adj``
+    (xor, leading zeros, accumulate)."""
+    words, ps = args
+    W, n = words.shape
+    be = kw["block_elems"]
+    lpos = torch.arange(n, device=ps.device) & (be - 1)
+    w = u32.from_i32_bits(words)
+    adj = torch.where(lpos == 0, 0, _adj_from_words(w, torch.roll(w, 1, dims=1)))
+    mb, mf = adj, torch.where(lpos == be - 1, 0, torch.roll(adj, -1))
+    needed = 2 * n
+    for d in range(1, kw["depth"]):
+        needed += int((mb > 0).sum()) + int((mf > 0).sum())
+        mb = torch.minimum(mb, torch.roll(adj, d))
+        mf = torch.minimum(mf, torch.where(lpos >= be - (d + 1), 0, torch.roll(adj, -(d + 1))))
+    return _nbytes(words, ps, *outs), needed * LCP_COST["cost"] + 3 * W * n
+
+
+def parse_work(args, kw, outs):
+    """3 ops (load, compare, store) per position the walk visits."""
+    (nl,) = args
+    return _nbytes(nl, outs), 3 * int((outs != 0).sum())
+
+
+def emit_work(args, kw, outs):
+    """8 ops (extract, add) per field whose value is not 0: a zero field
+    adds nothing."""
+    bytep, shifted = args
+    return _nbytes(bytep, shifted, outs), 8 * int((shifted != 0).sum())
+
+
+def adler_work(args, kw, outs):
+    """2 ops per byte: the sum and the weighted sum."""
+    (flat,) = args
+    return _nbytes(flat, outs), 2 * flat.numel()
+
+
+def match_work(args, kw, outs):
+    """Per lane and d = 1..depth with the candidate in the block (lpos >= d),
+    1 op, the hash compare; per equal hash 2 more (distance, range test);
+    per distance in range, 3 ops (xor, trailing zeros, add) for each window
+    word up to and including the first that differs, and 1 to keep the
+    longer."""
+    hs, ps, words = args
+    W, n = words.shape
+    lpos = torch.arange(n, device=hs.device) & (kw["block_elems"] - 1)
+    ops = 0
+    for d in range(1, kw["depth"] + 1):
+        inblock = lpos[d:] >= d
+        same = inblock & (hs[d:] == hs[:-d])
+        dist = ps[d:] - ps[:-d]
+        inrange = same & (dist > 0) & (dist <= kw["max_dist"])
+        equal_words = (words[:, d:] == words[:, :-d]).to(torch.int32).cumprod(0).sum(0)
+        visited = torch.clamp(equal_words + 1, max=W)
+        ops += (int(inblock.sum()) + 2 * int(same.sum())
+                + int((3 * visited + 1)[inrange].sum()))
+    return _nbytes(hs, ps, words, *outs), ops
+
+
+NO_LIBRARY = "no one PyTorch call computes this function"
+
 # name: (kernel, twin, source, TPU kernel it replaces, the paths at whose
-# shapes it is held to its twin; the first gives its report entry)
+# shapes it is held to its twin (the first gives its report entry), work)
 KERNELS = {
     "lcp_candidates": (lcp_candidates_cuda, lcp_candidates_torch,
                        "compu_tpu_torch/csrc/lcp_candidates.cu",
-                       "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex",)),
+                       "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex",), lcp_work),
     "parse_cover": (parse_cover_cuda, parse_cover_torch,
                     "compu_tpu_torch/csrc/parse_cover.cu",
-                    "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex",)),
+                    "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex",), parse_work),
     "emit_pack": (emit_pack_cuda, emit_pack_torch,
                   "compu_tpu_torch/csrc/emit_pack.cu",
-                  "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",)),
+                  "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",), emit_work),
     "match_candidates": (match_candidates_cuda, match_candidates_torch,
                          "compu_tpu_torch/csrc/match_candidates.cu",
-                         "compu_tpu/kernels/match_pallas.py:50", tuple(HASH_PATHS)),
+                         "compu_tpu/kernels/match_pallas.py:50", tuple(HASH_PATHS),
+                         match_work),
     "adler_tiles": (adler32_partials_cuda, adler32_partials_torch,
                     "compu_tpu_torch/csrc/adler_tiles.cu",
-                    "compu_tpu/kernels/pallas_kernels.py:31", ("adler_device",)),
+                    "compu_tpu/kernels/pallas_kernels.py:31", ("adler_device",),
+                    adler_work),
 }
 
 
@@ -183,18 +342,34 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor):
     return inputs
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` in milliseconds, after one warm call."""
-    fn()
+def device_ms(fn, args, kw, k: int, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` in milliseconds: after a warm call,
+    k back-to-back calls between one pair of CUDA events, divided by k; the
+    median of ``reps`` such runs. A sleep kernel ahead of the start event
+    keeps the device busy while the host enqueues the k calls, so the
+    events see the device's work and not the host's. The calls cycle
+    through copies of the inputs (``COLD_BYTES``)."""
+    copies = [args] + [tuple(a.clone() for a in args)
+                       for _ in range(math.ceil(COLD_BYTES / _nbytes(*args)) - 1)]
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # About 2e9 cycles a second; a slower clock only sleeps longer.
+    sleep_cycles = int(min(2 * k * host_s + 1e-3, 0.5) * 2e9)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
-        fn()
+        for i in range(k):
+            fn(*copies[i % len(copies)], **kw)
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / k)
     return statistics.median(times)
 
 
@@ -202,24 +377,34 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def hold_to_twin(name: str, path: str, kernel, twin, args, kw) -> dict:
+def hold_to_twin(name: str, path: str, kernel, twin, work, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all five are integer functions), and both timed."""
+    (tolerance 0: all five are integer functions), both timed, and the
+    kernel's bound from the same inputs."""
     got = as_tuple(kernel(*args, **kw))
     want = as_tuple(twin(*args, **kw))
     torch.cuda.synchronize()
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     same = all(torch.equal(g, w) for g, w in zip(got, want))
-    ms = cuda_ms(lambda: kernel(*args, **kw))
-    plain_ms = cuda_ms(lambda: twin(*args, **kw))
     shapes = [tuple(a.shape) for a in args]
-    log(f"kernel {name} ({path}): inputs {shapes} {kw} equal={same} max_abs_err={err} "
-        f"kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms")
     if not same:
         raise AssertionError(f"{name} ({path}): kernel and plain twin disagree "
-                             f"(max abs err {err})")
-    return {"path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                             f"(max abs err {err}) on inputs {shapes} {kw}")
+    nbytes, ops = work(args, kw, want[0] if len(want) == 1 else want)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    ms = device_ms(kernel, args, kw, k=50)
+    plain_ms = device_ms(twin, args, kw, k=20)
+    res = {"path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "ops": ops, "library_ms": None, "library_note": NO_LIBRARY}
+    res["share_of_bound"] = res["bound_ms"] / ms
+    log(f"kernel {name} ({path}): inputs {shapes} {kw} equal={same} max_abs_err={err} "
+        f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"by {res['bound_by']} ({nbytes} B, {ops} ops), share {res['share_of_bound']:.3f}")
+    return res
 
 
 def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor) -> list[dict]:
@@ -228,9 +413,12 @@ def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor) 
     under ``other_paths``."""
     report = []
     inputs = kernel_inputs(blocks, lens, flat)
-    for name, (kernel, twin, source, replaces, paths) in KERNELS.items():
-        first, *others = [hold_to_twin(name, p, kernel, twin, *inputs[name, p]) for p in paths]
+    for name, (kernel, twin, source, replaces, paths, work) in KERNELS.items():
+        first, *others = [hold_to_twin(name, p, kernel, twin, work, *inputs[name, p])
+                          for p in paths]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces, **first}
+        if name == "lcp_candidates":
+            entry["sass_per_candidate"] = dict(LCP_COST)
         if others:
             entry["other_paths"] = others
         report.append(entry)
@@ -349,7 +537,8 @@ def adler_device_path(blocks: np.ndarray, lens: np.ndarray, metas: np.ndarray) -
         raise AssertionError("adler32_device differs from the zlib_hash path's metas")
     log(f"adler_device: {len(got)} blocks equal zlib.adler32 and the hash path's metas "
         f"({sec * 1e3:.1f} ms for all, host combine included)")
-    return {"path": "adler_device", "blocks": len(got), "seconds": sec, "launches": launches}
+    return {"path": "adler_device", "blocks": len(got), "seconds": sec, "launches": launches,
+            "runs_counted": 1}
 
 
 def cpu_equals_device(blocks: np.ndarray, lens: np.ndarray, label: str, **kw) -> None:
@@ -373,8 +562,8 @@ def cpu_equals_device(blocks: np.ndarray, lens: np.ndarray, label: str, **kw) ->
 
 
 def stream_encoder() -> None:
-    """The reused Encoder state machine over the port's device backend."""
-    data = open("tests/data/alice29.txt", "rb").read()
+    """The port's Encoder state machine over its device backend."""
+    data = TEXT_PATH.read_bytes()
     enc = Interface.zlib_device(ZlibOptions(mode=ZlibMode.Gzip, level=LEVEL))
     vec = ByteVec()
     enc.encode_vec_full(data, vec, EncodeOp.Finish)
@@ -491,6 +680,11 @@ def main() -> None:
     path = _build.build()
     _build.lib()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.ptxas_report().splitlines():
+        if line.startswith("==") or any(w in line for w in ("Compiling entry", "Used", "spill")):
+            log("ptxas " + line.strip())
+    LCP_COST.update(lcp_candidate_cost(path))
+    log("sass lcp_candidates per candidate " + json.dumps(LCP_COST))
 
     corpus = build_corpus(CORPUS_BYTES)
     if sys.argv[1:] == ["--profile"]:
@@ -510,14 +704,17 @@ def main() -> None:
         for p in ("gzip_lex", *HASH_PATHS)))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
-            entry["launches"] = runs[entry["path"]]["launches"][k["name"]]
+            run = runs[entry["path"]]
+            entry["launches"] = run["launches"][k["name"]]
+            entry["launches_per_encode"] = entry["launches"] / run["runs_counted"]
     cpu_equals_device(blocks[:4], lens[:4], "gzip_lex", with_index=True, check="crc", **LADDER)
     for p, cfg in HASH_PATHS.items():
         cpu_equals_device(blocks[:4], lens[:4], p, with_index=True, check="adler", **cfg)
     stream_encoder()
-    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "compu_tpu", "bench"))
     if leaked:
-        raise AssertionError(f"jax was imported: {leaked[:5]}")
+        raise AssertionError(f"the JAX package or JAX was imported: {leaked[:5]}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``_build/`` under a name that hashes the sources and the
 flags, so an edited source rebuilds and an unchanged one is reused. The
 build runs at the first kernel launch of a process, never at import.
+ptxas's report of each kernel's registers, shared memory and spills is
+kept beside the library (``ptxas_report``).
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -28,7 +30,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Kernel launches per kernel name since the last reset_launch_counts().
 LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
@@ -36,7 +38,7 @@ LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "compu_lcp_candidates": (_P, _I, _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    "compu_lcp_candidates": (_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "compu_parse_cover": (_P, _P, _LL, _P),
     "compu_emit_pack": (_P, _P, _P, _LL, _I, _P),
     "compu_match_candidates": (_P, _P, _P, _I, _P, _P, _LL, _LL, _I, _I, _P),
@@ -91,13 +93,15 @@ def build() -> pathlib.Path:
                      [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
                  for src, obj in zip(sources(), objs)]
-        failed = []
+        failed, logs = [], []
         for src, proc in procs:
             log = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{log}")
             if proc.returncode:
                 failed.append(f"{src.name}: nvcc failed ({proc.returncode}):\n{log}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        out.with_suffix(".ptxas.txt").write_text("".join(logs))
         lib_tmp = pathlib.Path(tmp) / out.name
         proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib_tmp),
                                *map(str, objs)], capture_output=True, text=True)
@@ -106,6 +110,12 @@ def build() -> pathlib.Path:
                 f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(lib_tmp, out)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's output for the current build (registers, shared memory and
+    spills of every kernel), per source file."""
+    return build().with_suffix(".ptxas.txt").read_text()
 
 
 @functools.lru_cache(maxsize=1)

@@ -13,9 +13,8 @@ import time
 import numpy as np
 import torch
 
-from compu_tpu.formats.deflate.options import ZlibMode
-from compu_tpu.ops import checksum
-
+from ..formats.deflate.options import ZlibMode
+from ..ops import checksum
 from .deflate_v3 import encode_blocks_dyn
 
 # Device ladder of the lex/LCP matcher, per level.

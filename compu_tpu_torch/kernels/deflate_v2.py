@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from compu_tpu.formats.deflate import consts
+from ..formats.deflate import consts
 
 from . import u32
 from .lcp_match import lcp_candidates, sort_stage_lex

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from compu_tpu.formats.deflate import consts
+from ..formats.deflate import consts
 
 from . import u32
 from .checksum import device_crc_register

@@ -48,6 +48,8 @@ def emit_pack_cuda(bytep: torch.Tensor, shifted: torch.Tensor) -> torch.Tensor:
         raise ValueError("bytep and shifted must match in shape and device")
     S, F = bytep.shape
     rows = torch.empty(S, W2, dtype=torch.int32, device=bytep.device)
+    if S == 0:
+        return rows
     err = _build.lib().compu_emit_pack(
         bytep.data_ptr(), shifted.data_ptr(), rows.data_ptr(), S, F,
         _build.stream_handle(bytep))

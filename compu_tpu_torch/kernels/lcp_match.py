@@ -22,6 +22,7 @@ import torch
 from . import u32
 
 HALO = 128  # the kernel's depth limit, as the reference's
+MAX_DIST_CUDA = 1 << 24  # the kernel packs (max_dist - dist) into 24 bits
 
 
 def swap32(w: torch.Tensor) -> torch.Tensor:
@@ -132,7 +133,8 @@ def lcp_candidates_torch(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
 def lcp_candidates_cuda(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
                         max_dist: int, block_elems: int):
     """The CUDA kernel (``csrc/lcp_candidates.cu``); same contract as
-    :func:`lcp_candidates_torch`."""
+    :func:`lcp_candidates_torch`, for ``0 <= max_dist <= 2^24`` (the kernel
+    packs a distance into 24 bits)."""
     from .. import _build
 
     _build.require(words, "words", ndim=2)
@@ -142,14 +144,17 @@ def lcp_candidates_cuda(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
         raise ValueError("ps must match words' lane count and device")
     if not 1 <= W <= 8:
         raise ValueError(f"1..8 window words supported, got {W}")
+    if not 0 <= max_dist <= MAX_DIST_CUDA:
+        raise ValueError(f"max_dist must be in [0, {MAX_DIST_CUDA}], got {max_dist}")
     _check_args(depth, block_elems, n)
     best_len = torch.empty(n, dtype=torch.int32, device=ps.device)
     best_dist = torch.empty_like(best_len)
-    adj = torch.empty_like(best_len)
+    if n == 0:
+        return best_len, best_dist
     err = _build.lib().compu_lcp_candidates(
-        words.data_ptr(), W, ps.data_ptr(), adj.data_ptr(),
-        best_len.data_ptr(), best_dist.data_ptr(), n, block_elems, depth,
-        max_dist, _build.stream_handle(ps))
+        words.data_ptr(), W, ps.data_ptr(), best_len.data_ptr(),
+        best_dist.data_ptr(), n, block_elems, depth, max_dist,
+        _build.stream_handle(ps))
     _build.check_launch(err, "lcp_candidates")
     return best_len, best_dist
 

@@ -2,8 +2,8 @@
 
 The encode has no weights; besides the input blocks, the state both
 packages must agree on is these tables. They are rebuilt here from the
-jax-free ``compu_tpu.ops.checksum`` (``compu_tpu.kernels`` imports jax), and
-the tests hold them equal to the reference's arrays:
+port's own ``ops/checksum.py``, and the tests hold them equal to the
+reference's arrays:
 
 * ``FIXED_LIT_LEN_NP``, ``FIXED_DIST_LEN_NP``, ``CL_ORDER`` — RFC1951
   fixed-tree code lengths and the code-length-code order
@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from compu_tpu.ops.checksum import (
+from ..ops.checksum import (
     ADLER_MOD,
     CRC_TABLE,
     _gf2_matmul,

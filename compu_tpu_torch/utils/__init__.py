@@ -1,3 +1,4 @@
-"""Observability helpers: scheduler counters and profiler spans."""
+"""Observability helpers (scheduler counters, profiler spans) and the
+benchmark corpus."""
 
 from .metrics import Metrics, trace_span  # noqa: F401

@@ -121,13 +121,15 @@ def _corpus(nblocks):
 
 def test_gzip_stream_matches_reference(jax_cpu):
     """The whole level-6 gzip stream with the segment index, through both
-    packages' BlockParallelEncoder, in two pipeline groups."""
+    packages' BlockParallelEncoder, in two pipeline groups. Each package
+    gets its own ZlibMode: the port's is a copy, not the reference's."""
+    from compu_tpu.formats.deflate.options import ZlibMode as RefMode
     from compu_tpu.kernels.block_codec import make_block_encode_fn as ref_make
     from compu_tpu.parallel.scheduler import BlockParallelEncoder as RefEncoder
 
     data = _corpus(4)
     kw = dict(level=6, segment_index=True, pipeline_groups=2)
-    ref_enc = RefEncoder(ref_make(ZlibMode.Gzip, **kw), block_size=N, mode=ZlibMode.Gzip,
+    ref_enc = RefEncoder(ref_make(RefMode.Gzip, **kw), block_size=N, mode=RefMode.Gzip,
                          host_fallback=False)
     fn = make_block_encode_fn(ZlibMode.Gzip, device="cpu", **kw)
     enc = BlockParallelEncoder(fn, block_size=N, mode=ZlibMode.Gzip)
@@ -204,12 +206,16 @@ def test_zlib_device_roundtrip(mode, wbits):
 
 
 def test_zlib_device_matches_reference(jax_cpu):
+    """The reference is handed its own options, sink and op types."""
     from compu_tpu.encoder import Interface as RefInterface
+    from compu_tpu.formats.deflate.options import ZlibOptions as RefOptions
+    from compu_tpu.status import EncodeOp as RefOp
+    from compu_tpu.vec import ByteVec as RefVec
 
     data = TEXT[:70_000]
-    ref = RefInterface.zlib_device(ZlibOptions(level=6), block_size=N)
-    vec = ByteVec()
-    ref.encode_vec_full(data, vec, EncodeOp.Finish)
+    ref = RefInterface.zlib_device(RefOptions(level=6), block_size=N)
+    vec = RefVec()
+    ref.encode_vec_full(data, vec, RefOp.Finish)
     assert _device_encode(data, ZlibMode.Zlib) == vec.data()
 
 

@@ -358,3 +358,108 @@ def test_emit_kernel_matches_twin_gpu(cuda):
     bytep = torch.from_numpy(bytep).to(cuda)
     bits = u32.to_i32_bits(torch.from_numpy(shifted.astype(np.int64))).to(cuda)
     assert torch.equal(emit_pack_cuda(bytep, bits), emit_pack_torch(bytep, bits))
+
+
+# The redesigned B1 at every depth it compiles for (the level ladder's, as
+# template instances) and at depths it walks with a runtime count.
+LCP_GPU_DEPTHS = sorted({4, 6, 8, 12, 16, 24, 32, 48, 1, 5, 127})
+
+
+def _lcp_case(cuda, wcap, keys, stride, depth, block_elems=None, offset=0):
+    """Kernel against twin on sorted text, repeated and low-entropy blocks.
+    ``block_elems`` smaller than the sort blocks puts many block edges in
+    reach of the depth; ``offset`` > 0 hands the kernel inputs that are not
+    16-byte aligned (its scalar staging path)."""
+    blocks, _ = _blocks()
+    *wbe, ps = sort_stage_lex(torch.from_numpy(blocks).to(cuda), wcap=wcap,
+                              keys=keys, stride=stride)
+    words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in wbe]))
+    ps = ps.reshape(-1).to(torch.int32)
+    if offset:
+        W, n = words.shape
+        wbuf = torch.zeros(W * n + offset, dtype=torch.int32, device=cuda)
+        wbuf[offset:] = words.reshape(-1)
+        words = wbuf[offset:].view(W, n)
+        pbuf = torch.zeros(n + offset, dtype=torch.int32, device=cuda)
+        pbuf[offset:] = ps
+        ps = pbuf[offset:]
+    kw = dict(depth=depth, max_dist=32768,
+              block_elems=block_elems or N_SMALL // stride)
+    k = lcp_candidates_cuda(words, ps, **kw)
+    t = lcp_candidates_torch(words, ps, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], t[0]) and torch.equal(k[1], t[1]), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", LCP_GPU_DEPTHS)
+def test_lcp_kernel_every_depth_gpu(cuda, depth):
+    for wcap, keys, stride in SORT_CONFIGS:
+        _lcp_case(cuda, wcap, keys, stride, depth)
+    # Blocks of 64 and 256 lanes: most lanes lie within depth of an edge.
+    _lcp_case(cuda, 16, 2, 1, depth, block_elems=64)
+    _lcp_case(cuda, 8, 1, 2, depth, block_elems=256)
+    _lcp_case(cuda, 16, 2, 1, depth, offset=1)
+
+
+@pytest.mark.gpu
+def test_lcp_kernel_odd_lane_counts_gpu(cuda):
+    """n not a multiple of 4 (blocks of 1 and 2 lanes), and a tiny
+    max_dist: the kernel still equals the twin."""
+    rng = np.random.default_rng(5)
+    for n, be in ((6, 2), (7, 1), (1030, 2)):
+        words = torch.from_numpy(rng.integers(-4, 4, (3, n)).astype(np.int32)).to(cuda)
+        ps = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+        for max_dist in (1, 3, 32768):
+            kw = dict(depth=5, max_dist=max_dist, block_elems=be)
+            k = lcp_candidates_cuda(words, ps, **kw)
+            t = lcp_candidates_torch(words, ps, **kw)
+            assert torch.equal(k[0], t[0]) and torch.equal(k[1], t[1]), (n, kw)
+
+
+def _emit_case(cuda, S, F, seed, lo=-8, hi=520, offset=0):
+    """Random overlapping fields with byte positions in [lo, hi): fields
+    outside [0, 512) are dropped, bytes past 512 fall off the row."""
+    rng = np.random.default_rng(seed)
+    bytep = rng.integers(lo, hi, (S, F)).astype(np.int32)
+    shifted = rng.integers(0, 1 << 32, (S, F), dtype=np.uint64).astype(np.int64)
+    shifted[rng.random((S, F)) < 0.2] = 0
+    p = torch.from_numpy(bytep).to(cuda)
+    v = u32.to_i32_bits(torch.from_numpy(shifted)).to(cuda)
+    if offset:
+        pbuf = torch.zeros(S * F + offset, dtype=torch.int32, device=cuda)
+        vbuf = torch.zeros_like(pbuf)
+        pbuf[offset:] = p.reshape(-1)
+        vbuf[offset:] = v.reshape(-1)
+        p, v = pbuf[offset:].view(S, F), vbuf[offset:].view(S, F)
+    got = emit_pack_cuda(p, v)
+    want = emit_pack_torch(p, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (S, F, seed, offset)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [256, 255, 130, 7, 4, 1])
+def test_emit_kernel_random_fields_gpu(cuda, F):
+    want = _emit_case(cuda, 301, F, seed=F)
+    if F >= 130:
+        assert int(want.max()) > 255  # overlapping fields sum
+    _emit_case(cuda, 301, F, seed=F + 1, offset=1)  # scalar loads only
+    _emit_case(cuda, 33, F, seed=F + 2, lo=500, hi=515)  # bytes cross 512
+
+
+@pytest.mark.gpu
+def test_emit_kernel_dense_runs_gpu(cuda):
+    """Fields packed as the emit stage packs them: nearly monotone byte
+    positions, so most fields combine in registers."""
+    rng = np.random.default_rng(8)
+    S, F = 257, 256
+    bits = rng.integers(0, 14, (S, F))
+    off = np.cumsum(bits, 1) - bits
+    bytep = np.clip(off >> 3, 0, 511).astype(np.int32)
+    vals = rng.integers(0, 1 << 14, (S, F)) & ((1 << bits) - 1)
+    shifted = ((vals << (off & 7)) & 0xFFFFFFFF).astype(np.int64)
+    p = torch.from_numpy(bytep).to(cuda)
+    v = u32.to_i32_bits(torch.from_numpy(shifted)).to(cuda)
+    assert torch.equal(emit_pack_cuda(p, v), emit_pack_torch(p, v))
