@@ -24,13 +24,16 @@ failure:
 1. report torch, CUDA and the card (name and power limit);
 2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
 3. hold each kernel to its plain twin at each of its paths' shapes (the
-   first 16 blocks; the adler tiles over the whole corpus in one launch),
+   first 16 blocks; the adler tiles over the whole corpus in one launch,
+   and over one 256 KiB block, the launch adler_device makes 64 times),
    exactly, and time both with CUDA events: k back-to-back launches between
    one pair of events, divided by k, the median of 5 such runs (see
    ``device_ms``). Each kernel's bound is the larger of the bytes it must
    move over the card's memory rate and the integer operations it must do
    over the card's INT32 rate, both counted from this run's inputs (B1's
-   cost per candidate read from the built kernel's SASS, ``cuobjdump``);
+   cost per candidate read from the built kernel's SASS, ``cuobjdump``;
+   B5's instructions per candidate by pipe, from the same SASS, explain its
+   time and are reported beside it);
 4. encode the corpus end to end on each encode path (one warm run, median
    of three each), check that zlib gives the corpus back, every block
    status is ok, and the path launched its kernels;
@@ -141,8 +144,10 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # inputs from device memory, as the bound assumes.
 COLD_BYTES = 100 << 20
 # The cost of one B1 candidate in the built kernel (lcp_candidate_cost),
-# read from its SASS once the library is built.
+# and of one B5 candidate at each hash shape (match_candidate_cost), read
+# from their SASS once the library is built.
 LCP_COST: dict = {}
+MATCH_COST: dict = {}
 
 
 def _nbytes(*ts) -> int:
@@ -196,11 +201,32 @@ def lcp_candidate_cost(lib_path) -> dict:
     is the time of one candidate in INT32-lane issues (64 per SM and
     clock): the busiest of the ALU, the FMA pipe, the XU (at a quarter of
     the rate) and issue (at twice the rate)."""
-    c16 = sass_counts(lib_path, "lcp_kernelILi16E")
-    c8 = sass_counts(lib_path, "lcp_kernelILi8E")
-    per = {k: (c16[k] - c8[k]) / 64 for k in ("alu", "fma", "xu", "mem")}
+    return _cost_per_candidate(lib_path, "lcp_kernelILi16E", "lcp_kernelILi8E", 64)
+
+
+def _cost_per_candidate(lib_path, more: str, fewer: str, extra: int) -> dict:
+    """Instructions by pipe that kernel ``more`` has beyond ``fewer``, over
+    the ``extra`` candidates a thread weighs more; ``cost`` as in
+    :func:`lcp_candidate_cost`."""
+    a, b = sass_counts(lib_path, more), sass_counts(lib_path, fewer)
+    per = {k: (a[k] - b[k]) / extra for k in ("alu", "fma", "xu", "mem")}
     per["cost"] = max(per["alu"], per["fma"], 4 * per["xu"], sum(per.values()) / 2)
     return per
+
+
+def match_candidate_cost(lib_path) -> dict:
+    """What one B5 candidate costs in the compiled kernel, per hash shape:
+    ``match_kernel<32, 4>`` beyond ``<16, 4>`` over the 64 more candidates
+    a thread weighs (4 lanes x 16 depths), and ``<16, 8>`` beyond ``<8, 8>``
+    over 32. Both walks are unrolled and the extra depths fall in the same
+    32-d chunk, so staging, the word loop for equal first words (phase B)
+    and the epilogue cancel. The count includes the block-start patch of
+    the extra groups (8 instructions per 16 candidates), which only threads
+    within depth of a block start run."""
+    return {"wcap16_depth32": _cost_per_candidate(lib_path, "match_kernelILi32ELi4E",
+                                                  "match_kernelILi16ELi4E", 64),
+            "wcap32_depth16": _cost_per_candidate(lib_path, "match_kernelILi16ELi8E",
+                                                  "match_kernelILi8ELi8E", 32)}
 
 
 # Work of each kernel on one call: (bytes, ops) from the inputs, keywords
@@ -268,6 +294,31 @@ def match_work(args, kw, outs):
     return _nbytes(hs, ps, words, *outs), ops
 
 
+def match_phase_b(args, kw) -> dict:
+    """What B5's two phases meet in these inputs: the share of in-block
+    candidates that are matches (equal hash, distance in range), the share
+    of matches whose first two window words are equal (B5's phase B), and
+    those per lane, per thread of 4 lanes and for the busiest thread of each
+    warp of 32 threads, averaged over warps."""
+    hs, ps, words = args
+    n = hs.shape[0]
+    lpos = torch.arange(n, device=hs.device) & (kw["block_elems"] - 1)
+    inblock = matches = 0
+    both = torch.zeros(n, dtype=torch.int64, device=hs.device)
+    for d in range(1, kw["depth"] + 1):
+        dist = ps - torch.roll(ps, d)
+        ok = (lpos >= d) & (hs == torch.roll(hs, d)) & (dist > 0) & (dist <= kw["max_dist"])
+        inblock += int((lpos >= d).sum())
+        matches += int(ok.sum())
+        both += ok & (words[0] == torch.roll(words[0], d)) & (words[1] == torch.roll(words[1], d))
+    thread = both.reshape(-1, 4).sum(1)
+    return {"match_share": matches / inblock, "phase_b_share": int(both.sum()) / matches,
+            "phase_b_per_lane": both.double().mean().item(),
+            "phase_b_per_thread": thread.double().mean().item(),
+            "phase_b_busiest_thread_per_warp": thread.reshape(-1, 32).max(1).values
+            .double().mean().item()}
+
+
 NO_LIBRARY = "no one PyTorch call computes this function"
 
 # name: (kernel, twin, source, TPU kernel it replaces, the paths at whose
@@ -288,8 +339,8 @@ KERNELS = {
                          match_work),
     "adler_tiles": (adler32_partials_cuda, adler32_partials_torch,
                     "compu_tpu_torch/csrc/adler_tiles.cu",
-                    "compu_tpu/kernels/pallas_kernels.py:31", ("adler_device",),
-                    adler_work),
+                    "compu_tpu/kernels/pallas_kernels.py:31",
+                    ("adler_device", "adler_device/block"), adler_work),
 }
 
 
@@ -332,6 +383,8 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor):
         ("parse_cover", "gzip_lex"): ((nl,), {}),
         ("emit_pack", "gzip_lex"): ((bytep, shifted), {}),
         ("adler_tiles", "adler_device"): ((flat,), {}),
+        # What adler_device launches: one 256 KiB block, 64 times a pass.
+        ("adler_tiles", "adler_device/block"): ((flat[:N],), {}),
     }
     for path, cfg in HASH_PATHS.items():
         hs, hps, *sw = _sort_stage(blocks, ns, wcap=cfg["wcap"])
@@ -416,9 +469,15 @@ def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor) 
     for name, (kernel, twin, source, replaces, paths, work) in KERNELS.items():
         first, *others = [hold_to_twin(name, p, kernel, twin, work, *inputs[name, p])
                           for p in paths]
+        if name == "match_candidates":
+            for res in (first, *others):
+                res["phase_b"] = match_phase_b(*inputs[name, res["path"]])
+                log(f"match_candidates ({res['path']}) phase B " + json.dumps(res["phase_b"]))
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces, **first}
         if name == "lcp_candidates":
             entry["sass_per_candidate"] = dict(LCP_COST)
+        if name == "match_candidates":
+            entry["sass_per_candidate"] = dict(MATCH_COST)
         if others:
             entry["other_paths"] = others
         report.append(entry)
@@ -685,6 +744,8 @@ def main() -> None:
             log("ptxas " + line.strip())
     LCP_COST.update(lcp_candidate_cost(path))
     log("sass lcp_candidates per candidate " + json.dumps(LCP_COST))
+    MATCH_COST.update(match_candidate_cost(path))
+    log("sass match_candidates per candidate " + json.dumps(MATCH_COST))
 
     corpus = build_corpus(CORPUS_BYTES)
     if sys.argv[1:] == ["--profile"]:
@@ -704,7 +765,7 @@ def main() -> None:
         for p in ("gzip_lex", *HASH_PATHS)))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
-            run = runs[entry["path"]]
+            run = runs[entry["path"].split("/")[0]]
             entry["launches"] = run["launches"][k["name"]]
             entry["launches_per_encode"] = entry["launches"] / run["runs_counted"]
     cpu_equals_device(blocks[:4], lens[:4], "gzip_lex", with_index=True, check="crc", **LADDER)

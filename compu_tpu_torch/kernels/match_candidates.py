@@ -27,9 +27,14 @@ import torch
 from . import u32
 from .lcp_match import check_blocks
 
-TILE = 256            # lanes per CUDA block
+TILE = 512            # lanes per CUDA block (128 threads, 4 lanes each)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
-MAX_WORDS = 8         # window words the kernel holds in registers (wcap 32)
+MAX_WORDS = 8         # window words the kernel takes (wcap 32)
+# The kernel's template instances: depth x window words, for blocks of at
+# least 4 lanes; every other call runs its generic instance. Mirrors the
+# switch in csrc/match_candidates.cu.
+TEMPLATE_DEPTHS = (4, 6, 8, 12, 16, 24, 32, 48)
+TEMPLATE_WORDS = (2, 4, 8)
 
 
 def _check_args(depth: int, block_elems: int, n: int) -> None:
@@ -39,9 +44,18 @@ def _check_args(depth: int, block_elems: int, n: int) -> None:
 
 
 def smem_bytes(nwords: int, depth: int) -> int:
-    """Shared memory of one kernel block: hs, ps and the words of a tile
-    and its backward halo of ``depth`` lanes."""
-    return (TILE + depth) * (2 + nwords) * 4
+    """Shared memory of one kernel block: hs, ps and the words (at least
+    two rows) of a tile and its backward halo of ``depth`` lanes, rounded
+    up to 4."""
+    return (TILE + 4 * -(-depth // 4)) * (2 + max(nwords, 2)) * 4
+
+
+def kernel_instance(nwords: int, depth: int, block_elems: int) -> tuple[int, int]:
+    """The (depth, nwords) template instance of the kernel a call runs,
+    or (0, 0) for the generic instance (run-time depth and word count)."""
+    if block_elems >= 4 and depth in TEMPLATE_DEPTHS and nwords in TEMPLATE_WORDS:
+        return depth, nwords
+    return 0, 0
 
 
 def _tzb(x: torch.Tensor) -> torch.Tensor:
@@ -83,8 +97,10 @@ def match_candidates_torch(hs: torch.Tensor, ps: torch.Tensor, words: torch.Tens
 def match_candidates_cuda(hs: torch.Tensor, ps: torch.Tensor, words: torch.Tensor, *,
                           depth: int, max_dist: int, block_elems: int):
     """The CUDA kernel (``csrc/match_candidates.cu``); same contract as
-    :func:`match_candidates_torch`. Raises where one block's shared memory
-    cannot hold a tile and its halo."""
+    :func:`match_candidates_torch`, for ``max_dist >= 0`` and positions that
+    differ by less than ``2^31 - max_dist`` (distances are 32-bit there).
+    Raises where one block's shared memory cannot hold a tile and its
+    halo."""
     from .. import _build
 
     _build.require(hs, "hs", ndim=1)
@@ -95,6 +111,8 @@ def match_candidates_cuda(hs: torch.Tensor, ps: torch.Tensor, words: torch.Tenso
         raise ValueError("hs and ps must match words' lane count and device")
     if not 1 <= W <= MAX_WORDS:
         raise ValueError(f"1..{MAX_WORDS} window words supported, got {W}")
+    if max_dist < 0:
+        raise ValueError(f"max_dist must be >= 0, got {max_dist}")
     _check_args(depth, block_elems, n)
     need = smem_bytes(W, depth)
     if need > SMEM_LIMIT:
@@ -102,6 +120,8 @@ def match_candidates_cuda(hs: torch.Tensor, ps: torch.Tensor, words: torch.Tenso
                          f"memory per block; a block may use at most {SMEM_LIMIT}")
     best_len = torch.empty(n, dtype=torch.int32, device=ps.device)
     best_dist = torch.empty_like(best_len)
+    if n == 0:
+        return best_len, best_dist
     err = _build.lib().compu_match_candidates(
         hs.data_ptr(), ps.data_ptr(), words.data_ptr(), W, best_len.data_ptr(),
         best_dist.data_ptr(), n, block_elems, depth, max_dist, _build.stream_handle(ps))

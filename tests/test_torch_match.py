@@ -28,6 +28,10 @@ from compu_tpu_torch.kernels.deflate_v2 import (  # noqa: E402
 )
 from compu_tpu_torch.kernels.match_candidates import (  # noqa: E402
     SMEM_LIMIT,
+    TEMPLATE_DEPTHS,
+    TEMPLATE_WORDS,
+    TILE,
+    kernel_instance,
     match_candidates_cuda,
     match_candidates_torch,
     smem_bytes,
@@ -190,7 +194,7 @@ def test_match_kernel_wrapper_checks():
     with pytest.raises(ValueError, match="CUDA tensor"):
         match_candidates_cuda(z, z, z.reshape(1, 256), depth=4, max_dist=MAX_DIST,
                               block_elems=256)
-    assert smem_bytes(8, 16) == (256 + 16) * 10 * 4
+    assert smem_bytes(8, 16) == (TILE + 16) * 10 * 4
     assert smem_bytes(8, 512) <= SMEM_LIMIT < smem_bytes(8, 6000)
 
 
@@ -200,11 +204,21 @@ def test_match_kernel_wrapper_checks():
 
 @pytest.mark.gpu
 def test_match_kernel_matches_twin_gpu(cuda):
+    """Every template instance (ladder depth x 2, 4, 8 words), the generic
+    instance at depths 1, 5, 127, 200 and 1100 (its 64 KB of shared memory
+    at 8 words is past the 48 KB default) and at 1, 3, 5 words, and blocks
+    of 256 and 4 lanes, smaller than the kernel's 512-lane tile."""
     blocks, lens = _blocks()
-    # depth 1100 needs 54 KB of shared memory: past the 48 KB default.
-    for wcap, depth in [(8, 1), (16, 6), (32, 16), (32, 200), (32, 1100)]:
+    shapes = [(4 * w, d, N_SMALL) for w in TEMPLATE_WORDS for d in TEMPLATE_DEPTHS]
+    shapes += [(32, d, N_SMALL) for d in (1, 5, 127, 200, 1100)]
+    shapes += [(4, 16, N_SMALL), (12, 16, N_SMALL), (20, 33, N_SMALL),
+               (16, 32, 256), (32, 16, 256), (16, 6, 4)]
+    seen = set()
+    for wcap, depth, be in shapes:
         hs, ps, words = (x.to(cuda).contiguous() for x in _port_inputs(blocks, lens, wcap))
-        kw = dict(depth=depth, max_dist=MAX_DIST, block_elems=N_SMALL)
+        kw = dict(depth=depth, max_dist=MAX_DIST, block_elems=be)
+        seen.add(kernel_instance(wcap // 4, depth, be))
         k = match_candidates_cuda(hs, ps, words, **kw)
         t = match_candidates_torch(hs, ps, words, **kw)
-        assert torch.equal(k[0], t[0]) and torch.equal(k[1], t[1])
+        assert torch.equal(k[0], t[0]) and torch.equal(k[1], t[1]), (wcap, depth, be)
+    assert len(seen) == len(TEMPLATE_DEPTHS) * len(TEMPLATE_WORDS) + 1
