@@ -4,9 +4,9 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives four paths of the port over the 16 MB benchmark corpus
+Drives five paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
-4 groups of 16):
+4 groups of 16, for the DEFLATE paths):
 
 * **gzip_lex**, the flagship deployment: level-6 gzip with the segment
   index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``;
@@ -15,7 +15,12 @@ Drives four paths of the port over the 16 MB benchmark corpus
   ``BlockParallelEncoder(mode=Zlib)``;
 * **zlib_hash_time_lex**: the same at ``scripts/time_lex.py``'s hash shape,
   wcap 16, depth 32;
-* **adler_device**: ``adler32_device`` of each block.
+* **adler_device**: ``adler32_device`` of the 64 blocks, one launch;
+* **zstd_device**: the device zstd encode, ``Interface.zstd(ZstdOptions(
+  device_literals=True, device_sequences=True))``:
+  16 tokenizer calls of 1 MiB (B1 and B2 at 2^20 lanes, depth 8, max_dist
+  131,071), 128 frame blocks of 128 KiB, each with one FSE sequence scan
+  (P1, ``csrc/fse_seq_scan.cu``), and the xxh64 checksum.
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
@@ -24,43 +29,61 @@ failure:
 1. report torch, CUDA and the card (name and power limit);
 2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
 3. hold each kernel to its plain twin at each of its paths' shapes (the
-   first 16 blocks; the adler tiles over the whole corpus in one launch,
-   and over one 256 KiB block, the launch adler_device makes 64 times),
-   exactly, and time both with CUDA events: k back-to-back launches between
-   one pair of events, divided by k, the median of 5 such runs (see
-   ``device_ms``). Each kernel's bound is the larger of the bytes it must
-   move over the card's memory rate and the integer operations it must do
-   over the card's INT32 rate, both counted from this run's inputs (B1's
-   cost per candidate read from the built kernel's SASS, ``cuobjdump``;
-   B5's instructions per candidate by pipe, from the same SASS, explain its
-   time and are reported beside it);
-4. encode the corpus end to end on each encode path (one warm run, median
-   of three each), check that zlib gives the corpus back, every block
-   status is ok, and the path launched its kernels;
+   first 16 blocks; for B1 and B2 also the zstd path's first 1 MiB call;
+   the adler tiles over the whole corpus in one launch, as adler_device
+   makes it; P1 on the largest sequences section of the first MiB's zstd
+   encode), exactly, and time both with CUDA events: k back-to-back
+   launches between one pair of events, divided by k, the median of 5 such
+   runs (see ``device_ms``). Each kernel's bound is the larger of the bytes
+   it must move over the card's memory rate and the integer operations it
+   must do over the card's INT32 rate, both counted from this run's inputs
+   (B1's cost per candidate read from the built kernel's SASS,
+   ``cuobjdump``; B5's instructions per candidate by pipe, from the same
+   SASS, explain its time and are reported beside it). P1 is a chain of
+   dependent steps: its bound is its longest channel's step count times one
+   dependent shared-memory round trip, measured in this run by a chain of
+   shared-memory reads (``smoke_csrc/smem_chase.cu``, a library of this
+   script's own, printed as ``smem``);
+4. encode the corpus end to end on each DEFLATE encode path (one warm run,
+   median of three each), check that zlib gives the corpus back, every
+   block status is ok, and the path launched its kernels;
 5. run adler_device and require each block's adler32 to equal
    ``zlib.adler32`` and the zlib_hash path's metas;
-6. encode the first 4 blocks on the CPU (the twins) and on the card, on
-   each encode path, and require equal bytes, metas and segment index;
-7. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
+6. encode the corpus on zstd_device (one warm run, median of three) and
+   require (i) the frame to equal the frame of the host literal and
+   sequence writers (``device_literals=False, device_sequences=False``),
+   (ii) in every tokenizer call of the warm run, the tokens to tile the
+   call's bytes and every match's bytes to equal those at its distance,
+   (iii) the first 2 MiB encoded on the CPU (the plain versions) to equal
+   the card's frame, and the frame to walk as 128 blocks to its checksum;
+7. encode the first 4 blocks on the CPU (the twins) and on the card, on
+   each DEFLATE encode path, and require equal bytes, metas and segment
+   index;
+8. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
 
 The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 (with the ``bytes`` and ``ops`` it counts), ``bound_by``,
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
 ``launches_per_encode``, and ``library_ms`` null with the reason: no one
-PyTorch call computes any of the five functions. Without a CUDA device it
+PyTorch call computes any of the six functions. Without a CUDA device it
 fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path
 once with every stage synchronised before and after (ms per stage), and
 once under ``torch.profiler``. From the profile it counts the CUDA kernels
 and copies, takes the union of their intervals as the device's busy time,
-and prints the idle share of the profiled wall time, one JSON line a path.
+and prints the idle share of the profiled wall time and the six kernels
+with the most device time, one JSON line a path.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import ctypes
+import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -77,7 +100,10 @@ import torch
 from compu_tpu_torch import BlockParallelEncoder, ZlibMode, ZlibOptions, _build
 from compu_tpu_torch import make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
-from compu_tpu_torch.kernels import deflate_v2, deflate_v3, u32
+from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
+from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
+from compu_tpu_torch.formats.zstd.options import ZstdOptions
+from compu_tpu_torch.kernels import deflate_v2, deflate_v3, u32, zstd_seq
 from compu_tpu_torch.kernels.adler_tiles import (
     adler32_device,
     adler32_partials_cuda,
@@ -109,6 +135,8 @@ from compu_tpu_torch.kernels.match_candidates import (
     match_candidates_torch,
 )
 from compu_tpu_torch.kernels.parse_cover import jump_targets, parse_cover_cuda, parse_cover_torch
+from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_torch
+from compu_tpu_torch.ops.xxhash import xxh64
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
 
 LEVEL = 6
@@ -124,17 +152,25 @@ HASH_PATHS = {
     "zlib_hash_time_lex": dict(matcher="hash", wcap=16, depth=32),
 }
 MAX_DIST = 32768
+# The zstd path: the reference's device zstd encode at its defaults
+# (window_log 17: max_dist 131,071; 1 MiB tokenizer calls of depth 8, wcap
+# 32, two sort keys; 128 KiB frame blocks; the xxh64 checksum).
+ZSTD_OPTS = dict(device_literals=True, device_sequences=True)
+ZSTD_SPAN = 8 * ZSTD_BLOCK
+ZSTD_LCP = dict(depth=8, max_dist=(1 << 17) - 1, block_elems=ZSTD_SPAN)
+ZSTD_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
 
 # The kernels each path must launch.
 PATHS = {
     "gzip_lex": ("lcp_candidates", "parse_cover", "emit_pack"),
     **{p: ("match_candidates", "parse_cover", "emit_pack") for p in HASH_PATHS},
     "adler_device": ("adler_tiles",),
+    "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All five kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All six kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -148,6 +184,9 @@ COLD_BYTES = 100 << 20
 # from their SASS once the library is built.
 LCP_COST: dict = {}
 MATCH_COST: dict = {}
+# This script's own CUDA sources, built beside the package's kernels: the
+# shared-memory chase that measures P1's bound unit.
+SMOKE_SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "smoke_csrc").glob("*.cu"))
 
 
 def _nbytes(*ts) -> int:
@@ -272,6 +311,48 @@ def adler_work(args, kw, outs):
     return _nbytes(flat, outs), 2 * flat.numel()
 
 
+def scan_work(args, kw, outs):
+    """The longest channel's chain: nseq - 1 dependent steps for a channel
+    with a table, each at least one shared-memory round trip, so the ops'
+    time is the steps times that latency (``smem_round_trip``) and not the
+    INT32 rate's. Bytes: the codes and tables in, the pushes and final
+    states out."""
+    ens = args[-1]
+    steps = kw["nseq"] - 1 if bool((ens > 0).any()) else 0
+    smem = smem_round_trip()
+    return _nbytes(*args, *outs), steps, {
+        "ops_ms": steps * smem["ns"] * 1e-6, "ns_per_op": smem["ns"],
+        "bound_note": f"the longest channel's dependent steps x one shared-memory read, "
+                      f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
+                      f"run by one thread chasing i = ring[i] {smem['steps']} times through "
+                      f"shared memory (smoke_csrc/smem_chase.cu)"}
+
+
+@functools.lru_cache(maxsize=1)
+def smem_round_trip(steps: int = 1 << 20) -> dict:
+    """One dependent shared-memory read on this card: one thread chases
+    ``i = ring[i]`` through shared memory ``steps`` times
+    (``smoke_csrc/smem_chase.cu``). ``ns`` from CUDA events around the
+    launch, ``cycles`` from the SM's clock64 inside it, both per read."""
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = ctypes.CDLL(str(_build.build(SMOKE_SOURCES, "libcompu_smoke")))
+    lib.compu_smem_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.compu_smem_chase.restype = ctypes.c_int
+    if lib.compu_smem_chase(out.data_ptr(), steps, stream):
+        raise RuntimeError("compu_smem_chase failed to launch")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lib.compu_smem_chase(out.data_ptr(), steps, stream)
+    end.record()
+    torch.cuda.synchronize()
+    res = {"ns": start.elapsed_time(end) * 1e6 / steps, "cycles": int(out[1]) / steps,
+           "steps": steps}
+    log("smem dependent shared-memory read " + json.dumps(res))
+    return res
+
+
 def match_work(args, kw, outs):
     """Per lane and d = 1..depth with the candidate in the block (lpos >= d),
     1 op, the hash compare; per equal hash 2 more (distance, range test);
@@ -321,26 +402,52 @@ def match_phase_b(args, kw) -> dict:
 
 NO_LIBRARY = "no one PyTorch call computes this function"
 
-# name: (kernel, twin, source, TPU kernel it replaces, the paths at whose
-# shapes it is held to its twin (the first gives its report entry), work)
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One kernel of the report. ``paths`` are the paths at whose shapes it
+    is held to its twin (the first gives its report entry). ``work`` gives
+    (bytes, ops) of one call, and for a kernel bound by a chain of dependent
+    steps rather than by the INT32 rate a third item: the ops' time
+    (``ops_ms``) with its basis, which goes into the report. ``twin_k`` is
+    the twin calls per event pair."""
+
+    kernel: object
+    twin: object
+    source: str
+    replaces: str
+    paths: tuple
+    work: object
+    replaces_note: str | None = None
+    twin_k: int = 20
+
+
 KERNELS = {
-    "lcp_candidates": (lcp_candidates_cuda, lcp_candidates_torch,
-                       "compu_tpu_torch/csrc/lcp_candidates.cu",
-                       "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex",), lcp_work),
-    "parse_cover": (parse_cover_cuda, parse_cover_torch,
-                    "compu_tpu_torch/csrc/parse_cover.cu",
-                    "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex",), parse_work),
-    "emit_pack": (emit_pack_cuda, emit_pack_torch,
-                  "compu_tpu_torch/csrc/emit_pack.cu",
-                  "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",), emit_work),
-    "match_candidates": (match_candidates_cuda, match_candidates_torch,
-                         "compu_tpu_torch/csrc/match_candidates.cu",
-                         "compu_tpu/kernels/match_pallas.py:50", tuple(HASH_PATHS),
-                         match_work),
-    "adler_tiles": (adler32_partials_cuda, adler32_partials_torch,
-                    "compu_tpu_torch/csrc/adler_tiles.cu",
-                    "compu_tpu/kernels/pallas_kernels.py:31",
-                    ("adler_device", "adler_device/block"), adler_work),
+    "lcp_candidates": Kernel(lcp_candidates_cuda, lcp_candidates_torch,
+                             "compu_tpu_torch/csrc/lcp_candidates.cu",
+                             "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex", "zstd_device"),
+                             lcp_work),
+    "parse_cover": Kernel(parse_cover_cuda, parse_cover_torch,
+                          "compu_tpu_torch/csrc/parse_cover.cu",
+                          "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex", "zstd_device"),
+                          parse_work),
+    "emit_pack": Kernel(emit_pack_cuda, emit_pack_torch,
+                        "compu_tpu_torch/csrc/emit_pack.cu",
+                        "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",), emit_work),
+    "match_candidates": Kernel(match_candidates_cuda, match_candidates_torch,
+                               "compu_tpu_torch/csrc/match_candidates.cu",
+                               "compu_tpu/kernels/match_pallas.py:50", tuple(HASH_PATHS),
+                               match_work),
+    "adler_tiles": Kernel(adler32_partials_cuda, adler32_partials_torch,
+                          "compu_tpu_torch/csrc/adler_tiles.cu",
+                          "compu_tpu/kernels/pallas_kernels.py:31", ("adler_device",),
+                          adler_work),
+    # The plain version is a Python loop of ~10 launches a step: one call
+    # per event pair.
+    "fse_seq_scan": Kernel(fse_seq_scan_cuda, fse_seq_scan_torch,
+                           "compu_tpu_torch/csrc/fse_seq_scan.cu",
+                           "compu_tpu/kernels/zstd_seq_jax.py:84", ("zstd_device",), scan_work,
+                           replaces_note="a jax.lax.scan, not a TPU kernel", twin_k=1),
 }
 
 
@@ -359,10 +466,12 @@ def split_blocks(data: bytes, bs: int = BLOCK):
     return blocks, lens
 
 
-def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor):
+def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
+                  zstd_call: torch.Tensor, scan_args):
     """The inputs each kernel receives on its path: B1-B3 and B5 for the
-    (B, N) blocks as the port's stages compute them, B4 the flat bytes.
-    Returns {(kernel, path): (args, kw)}."""
+    (B, N) blocks as the port's stages compute them, B4 the flat bytes, B1
+    and B2 for the zstd path's (1, 2^20) tokenizer call, P1 the recorded
+    ``scan_args``. Returns {(kernel, path): (args, kw)}."""
     B, N = blocks.shape
     ns = lens.to(torch.int64)
     *wbe, ps = sort_stage_lex(blocks, wcap=LADDER["wcap"], keys=LADDER["lex_keys"],
@@ -383,9 +492,19 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor):
         ("parse_cover", "gzip_lex"): ((nl,), {}),
         ("emit_pack", "gzip_lex"): ((bytep, shifted), {}),
         ("adler_tiles", "adler_device"): ((flat,), {}),
-        # What adler_device launches: one 256 KiB block, 64 times a pass.
-        ("adler_tiles", "adler_device/block"): ((flat[:N],), {}),
+        ("fse_seq_scan", "zstd_device"): scan_args,
     }
+    # The zstd tokenizer's call: match_and_parse at its defaults (wcap 32,
+    # two sort keys, stride 1) over one 1 MiB block.
+    *zbe, zps = sort_stage_lex(zstd_call, wcap=32, keys=2, stride=1)
+    zwords = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in zbe]))
+    zps32 = zps.reshape(-1).to(torch.int32)
+    zbl, zbd = lcp_candidates_torch(zwords, zps32, **ZSTD_LCP)
+    zstep, *_ = _post_match(zstd_call, torch.tensor([ZSTD_SPAN], device=zstd_call.device), zps,
+                            zbl.reshape(1, -1).to(torch.int64),
+                            zbd.reshape(1, -1).to(torch.int64), wcap=32)
+    inputs["lcp_candidates", "zstd_device"] = ((zwords, zps32), dict(ZSTD_LCP))
+    inputs["parse_cover", "zstd_device"] = ((jump_targets(zstep.reshape(-1)),), {})
     for path, cfg in HASH_PATHS.items():
         hs, hps, *sw = _sort_stage(blocks, ns, wcap=cfg["wcap"])
         hwords = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in sw]))
@@ -430,10 +549,11 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def hold_to_twin(name: str, path: str, kernel, twin, work, args, kw) -> dict:
+def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all five are integer functions), both timed, and the
+    (tolerance 0: all six are integer functions), both timed, and the
     kernel's bound from the same inputs."""
+    kernel, twin = spec.kernel, spec.twin
     got = as_tuple(kernel(*args, **kw))
     want = as_tuple(twin(*args, **kw))
     torch.cuda.synchronize()
@@ -444,15 +564,17 @@ def hold_to_twin(name: str, path: str, kernel, twin, work, args, kw) -> dict:
     if not same:
         raise AssertionError(f"{name} ({path}): kernel and plain twin disagree "
                              f"(max abs err {err}) on inputs {shapes} {kw}")
-    nbytes, ops = work(args, kw, want[0] if len(want) == 1 else want)
+    nbytes, ops, *chain = spec.work(args, kw, want[0] if len(want) == 1 else want)
+    chain = dict(chain[0]) if chain else {}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    ops_ms = chain.pop("ops_ms", ops / INT32_OPS_PER_S * 1e3)
     ms = device_ms(kernel, args, kw, k=50)
-    plain_ms = device_ms(twin, args, kw, k=20)
+    plain_ms = device_ms(twin, args, kw, k=spec.twin_k)
     res = {"path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes, "ops": ops, "library_ms": None, "library_note": NO_LIBRARY}
+           "bytes": nbytes, "ops": ops, "library_ms": None, "library_note": NO_LIBRARY,
+           **chain}
     res["share_of_bound"] = res["bound_ms"] / ms
     log(f"kernel {name} ({path}): inputs {shapes} {kw} equal={same} max_abs_err={err} "
         f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
@@ -460,20 +582,23 @@ def hold_to_twin(name: str, path: str, kernel, twin, work, args, kw) -> dict:
     return res
 
 
-def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor) -> list[dict]:
+def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
+                  zstd_call: torch.Tensor, scan_args) -> list[dict]:
     """Each kernel against its plain twin on the card, at each of its paths'
     shapes. A kernel held at more than one path's shapes reports the others
     under ``other_paths``."""
     report = []
-    inputs = kernel_inputs(blocks, lens, flat)
-    for name, (kernel, twin, source, replaces, paths, work) in KERNELS.items():
-        first, *others = [hold_to_twin(name, p, kernel, twin, work, *inputs[name, p])
-                          for p in paths]
+    inputs = kernel_inputs(blocks, lens, flat, zstd_call, scan_args)
+    for name, spec in KERNELS.items():
+        first, *others = [hold_to_twin(name, p, spec, *inputs[name, p]) for p in spec.paths]
         if name == "match_candidates":
             for res in (first, *others):
                 res["phase_b"] = match_phase_b(*inputs[name, res["path"]])
                 log(f"match_candidates ({res['path']}) phase B " + json.dumps(res["phase_b"]))
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces, **first}
+        entry = {"name": name, "route": "cuda", "source": spec.source,
+                 "replaces": spec.replaces, **first}
+        if spec.replaces_note:
+            entry["replaces_note"] = spec.replaces_note
         if name == "lcp_candidates":
             entry["sass_per_candidate"] = dict(LCP_COST)
         if name == "match_candidates":
@@ -582,12 +707,13 @@ def zlib_hash_path(path: str, corpus: bytes) -> tuple[dict, np.ndarray]:
 
 
 def adler_device_path(blocks: np.ndarray, lens: np.ndarray, metas: np.ndarray) -> dict:
-    """adler32_device of every block: equal to zlib.adler32 and to the
-    zlib_hash path's metas[:, 1] (the plain ``_block_checksum``)."""
+    """adler32_device of the (64, N) block batch, one launch and one fetch:
+    each block's value equal to zlib.adler32 and to the zlib_hash path's
+    metas[:, 1] (the plain ``_block_checksum``)."""
     dev = torch.from_numpy(blocks).cuda()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got, launches = run_path("adler_device", lambda: [
-        adler32_device(dev[i], int(lens[i])) for i in range(len(lens))])
+    got, launches = run_path("adler_device", lambda: adler32_device(dev, lens))
     sec = time.perf_counter() - t0
     want = [zlib.adler32(blocks[i, :lens[i]].tobytes()) for i in range(len(lens))]
     if got != want:
@@ -631,6 +757,176 @@ def stream_encoder() -> None:
     log(f"zlib_device: alice29.txt {len(data)} -> {len(vec.data())} bytes, decodes")
 
 
+def zstd_frame(data: bytes, device, tokenizer_hook=None, **flags) -> bytes:
+    """One zstd frame of ``data`` through ``Interface.zstd`` on ``device``
+    (``ZSTD_OPTS`` with ``flags`` over them). ``tokenizer_hook(tokenizer)``
+    may replace the encoder's tokenizer by a wrapper (harness only)."""
+    enc = Interface.zstd(ZstdOptions(**{**ZSTD_OPTS, **flags}), device=device)
+    if tokenizer_hook is not None:
+        stream = enc._backend._stream
+        stream.tokenizer = tokenizer_hook(stream.tokenizer)
+    vec = ByteVec()
+    enc.encode_vec_full(data, vec, EncodeOp.Finish)
+    return vec.data()
+
+
+def record_scan_inputs(data: bytes):
+    """Encode ``data`` on the card and keep P1's arguments from its
+    largest sequences section: the (args, kw) the main path gives P1."""
+    kept = {}
+    scan = zstd_seq.fse_seq_scan
+
+    def recording(*args):
+        if args[-1] > kept.get("nseq", 0):
+            kept.update(nseq=args[-1], args=tuple(a.clone() for a in args[:-1]))
+        return scan(*args)
+
+    zstd_seq.fse_seq_scan = recording
+    try:
+        zstd_frame(data, torch.device("cuda"))
+    finally:
+        zstd_seq.fse_seq_scan = scan
+    log(f"fse_seq_scan inputs: the largest of the first MiB's sections, {kept['nseq']} sequences")
+    return kept["args"], {"nseq": kept["nseq"]}
+
+
+def check_token_cover(data: bytes, tokens, max_dist: int) -> tuple[int, int]:
+    """Check (ii) for one tokenizer call, vectorised: the tokens tile
+    [0, n) in position order, and every match (3..258 bytes, distance in
+    1..min(pos, max_dist)) copies bytes equal to those at its distance.
+    Returns (tokens, matches)."""
+    pos, ln, dist = (np.asarray(t, np.int64) for t in tokens)
+    arr = np.frombuffer(data, np.uint8)
+    span = np.where(ln > 0, ln, 1)
+    if not (len(pos) and pos[0] == 0 and np.array_equal(pos[1:], (pos + span)[:-1])
+            and pos[-1] + span[-1] == len(arr)):
+        raise AssertionError("the tokens do not tile the tokenizer call's bytes")
+    m = ln > 0
+    mp, ml, md = pos[m], ln[m], dist[m]
+    if not ((ml >= 3).all() and (ml <= 258).all() and (md >= 1).all()
+            and (md <= mp).all() and (md <= max_dist).all()):
+        raise AssertionError("a match's length or distance is out of range")
+    at = np.repeat(mp, ml) + np.arange(int(ml.sum())) - np.repeat(np.cumsum(ml) - ml, ml)
+    if not np.array_equal(arr[at], arr[at - np.repeat(md, ml)]):
+        raise AssertionError("a match's bytes differ from the bytes at its distance")
+    return len(pos), int(m.sum())
+
+
+def walk_frame(frame: bytes, data: bytes) -> int:
+    """The frame's structure: magic, header, blocks of at most 128 KiB up
+    to the one marked last, then the xxh64 checksum of ``data``. Returns
+    the block count."""
+    if frame[:4] != (0xFD2FB528).to_bytes(4, "little") or frame[4] != 0x04:
+        raise AssertionError("bad zstd frame header")
+    at, blocks = 6, 0
+    while True:
+        h = int.from_bytes(frame[at:at + 3], "little")
+        last, btype, size = h & 1, (h >> 1) & 3, h >> 3
+        at += 3 + (1 if btype == 1 else size)
+        blocks += 1
+        if btype == 3 or size > ZSTD_BLOCK:
+            raise AssertionError(f"bad block header at {at}")
+        if last:
+            break
+    if frame[at:] != (xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little"):
+        raise AssertionError("zstd frame checksum differs from xxh64 of the input")
+    return blocks
+
+
+def zstd_device_path(corpus: bytes) -> dict:
+    """The device zstd encode of the corpus: one warm encode, whose
+    tokenizer calls are kept for check (ii), then three timed; then checks
+    (i) and (iii) and the frame's structure."""
+    dev = torch.device("cuda")
+    calls = []
+
+    def keep_calls(tokenizer):
+        def call(data):
+            out = tokenizer(data)
+            calls.append((data, out))
+            return out
+        return call
+
+    def encodes():
+        warm = zstd_frame(corpus, dev, tokenizer_hook=keep_calls)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = zstd_frame(corpus, dev)
+            times.append(time.perf_counter() - t0)
+        return warm, frame, times
+
+    (warm, frame, times), launches = run_path("zstd_device", encodes)
+    if warm != frame:
+        raise AssertionError("two encodes of the corpus gave different frames")
+    max_dist = ZSTD_LCP["max_dist"]
+    counts = [check_token_cover(d, t, max_dist) for d, t in calls]
+    if sum(len(d) for d, _ in calls) != len(corpus):
+        raise AssertionError("the tokenizer calls do not cover the corpus")
+    log(f"zstd_device (ii): {len(calls)} tokenizer calls tile their bytes, "
+        f"{sum(c[1] for c in counts)} matches of {sum(c[0] for c in counts)} tokens "
+        "copy equal bytes")
+    t0 = time.perf_counter()
+    host = zstd_frame(corpus, dev, device_literals=False, device_sequences=False)
+    if host != frame:
+        raise AssertionError("(i) the device entropy stages' frame differs from the host writers'")
+    log(f"zstd_device (i): frame equals the host writers' frame ({time.perf_counter() - t0:.1f} s)")
+    head = corpus[:ZSTD_CPU_BYTES]
+    t0 = time.perf_counter()
+    cpu = zstd_frame(head, "cpu")
+    t_cpu = time.perf_counter() - t0
+    if cpu != zstd_frame(head, dev):
+        raise AssertionError("(iii) the CPU's frame of the first 2 MiB differs from the card's")
+    log(f"zstd_device (iii): cpu == gpu frame of the first {len(head)} bytes (cpu run {t_cpu:.1f} s)")
+    blocks = walk_frame(frame, corpus)
+    if blocks != -(-len(corpus) // ZSTD_BLOCK):
+        raise AssertionError(f"{blocks} frame blocks for {len(corpus)} bytes")
+    sec = statistics.median(times)
+    res = {"path": "zstd_device", "bytes": len(corpus), "frame_blocks": blocks,
+           "tokenizer_calls": len(calls), "compressed": len(frame),
+           "ratio": len(corpus) / len(frame), "median_s": sec, "runs_s": times,
+           "MBps": len(corpus) / sec / 1e6, "launches": launches, "runs_counted": 4}
+    log("e2e " + json.dumps(res))
+    return res
+
+
+def zstd_stage_ms(corpus: bytes) -> dict:
+    """One zstd_device encode with each stage synchronised before and
+    after: ms in the tokenizer calls, the literal sections, the sequence
+    sections (device stages inside), xxh64, and the rest of the encode."""
+    times = {"tokenizer": 0.0, "_literals_section": 0.0, "_sequences_section": 0.0,
+             "xxh64": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    names = ("_literals_section", "_sequences_section", "xxh64")
+    saved = {n: getattr(zstd_encode_mod, n) for n in names}
+    for n in names:
+        setattr(zstd_encode_mod, n, timed(n, saved[n]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zstd_frame(corpus, torch.device("cuda"),
+                   tokenizer_hook=lambda tok: timed("tokenizer", tok))
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in names:
+            setattr(zstd_encode_mod, n, saved[n])
+    times["rest"] = total - sum(times.values())
+    times["total"] = total
+    return times
+
+
 # The encode's stages, by the module whose globals the encode looks them up in.
 STAGES = (
     (deflate_v2, "sort_stage_lex"), (deflate_v2, "_sort_stage"),
@@ -671,8 +967,8 @@ def stage_ms(enc, corpus: bytes) -> dict:
     return times
 
 
-def device_profile(enc, corpus: bytes) -> dict:
-    """One encode under torch.profiler. Only the CUDA device's own work is
+def device_profile(encode) -> dict:
+    """One ``encode()`` under torch.profiler. Only the CUDA device's own work is
     counted: kernels, and the copies and sets named Memcpy/Memset. The
     device-side copies of ``record_function`` spans (user annotations) are
     left out, since one spans the whole encode. The union of the work's
@@ -683,7 +979,7 @@ def device_profile(enc, corpus: bytes) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enc.encode(corpus)
+        encode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -695,6 +991,10 @@ def device_profile(enc, corpus: bytes) -> dict:
                  for e, span in zip(on_dev, is_span) if not span)
     kernels = [(s, e) for s, e, n in dev if not n.startswith(("Memcpy", "Memset"))]
     kernel_ms = sum(e - s for s, e in kernels) / 1e3
+    by_name = collections.Counter()
+    for start, end, name in dev:
+        if not name.startswith(("Memcpy", "Memset")):
+            by_name[name] += (end - start) / 1e3
     if not kernels or kernel_ms > wall_ms:
         raise AssertionError(f"implausible profile: {len(kernels)} kernels, {kernel_ms:.1f} ms "
                              f"of kernels in {wall_ms:.1f} ms")
@@ -705,7 +1005,8 @@ def device_profile(enc, corpus: bytes) -> dict:
     return {"profiled_wall_ms": wall_ms, "kernels": len(kernels),
             "copies": len(dev) - len(kernels), "spans_left_out": sorted({e.name for e in spans}),
             "kernel_ms": kernel_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1 - busy_us / 1e3 / wall_ms}
+            "idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "top_kernels_ms": {n[:60]: t for n, t in by_name.most_common(6)}}
 
 
 def profile_main(corpus: bytes) -> None:
@@ -720,8 +1021,17 @@ def profile_main(corpus: bytes) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         res = {"path": path, "wall_ms": wall_ms, "stages_ms": stage_ms(enc, corpus),
-               **device_profile(enc, corpus)}
+               **device_profile(lambda: enc.encode(corpus))}
         log("profile " + json.dumps(res))
+    encode = functools.partial(zstd_frame, corpus, torch.device("cuda"))
+    encode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {"path": "zstd_device", "wall_ms": wall_ms, "stages_ms": zstd_stage_ms(corpus),
+           **device_profile(encode)}
+    log("profile " + json.dumps(res))
 
 
 def main() -> None:
@@ -736,9 +1046,12 @@ def main() -> None:
     log(smi.splitlines()[0])
 
     t0 = time.perf_counter()
-    path = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        smoke = pool.submit(_build.build, SMOKE_SOURCES, "libcompu_smoke")
+        path = _build.build()
+        smoke.result()
     _build.lib()
-    log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"built {path.name} and this script's library in {time.perf_counter() - t0:.1f} s")
     for line in _build.ptxas_report().splitlines():
         if line.startswith("==") or any(w in line for w in ("Compiling entry", "Used", "spill")):
             log("ptxas " + line.strip())
@@ -752,20 +1065,23 @@ def main() -> None:
         profile_main(corpus)
         return
     blocks, lens = split_blocks(corpus)
+    scan_args = record_scan_inputs(corpus[:ZSTD_SPAN])
+    zstd_call = torch.from_numpy(np.frombuffer(corpus[:ZSTD_SPAN], np.uint8).copy()[None]).cuda()
     kernels = check_kernels(torch.from_numpy(blocks[:16]).cuda(),
                             torch.from_numpy(lens[:16]).cuda(),
-                            torch.from_numpy(blocks.reshape(-1)).cuda())
+                            torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args)
     runs = {"gzip_lex": gzip_lex_path(corpus)}
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
+    runs["zstd_device"] = zstd_device_path(corpus)
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
-        for p in ("gzip_lex", *HASH_PATHS)))
+        for p in ("gzip_lex", *HASH_PATHS, "zstd_device")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
-            run = runs[entry["path"].split("/")[0]]
+            run = runs[entry["path"]]
             entry["launches"] = run["launches"][k["name"]]
             entry["launches_per_encode"] = entry["launches"] / run["runs_counted"]
     cpu_equals_device(blocks[:4], lens[:4], "gzip_lex", with_index=True, check="crc", **LADDER)

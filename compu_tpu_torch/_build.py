@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: Kernel launches per kernel name since the last reset_launch_counts().
 LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
-            "match_candidates": 0, "adler_tiles": 0}
+            "match_candidates": 0, "adler_tiles": 0, "fse_seq_scan": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "compu_emit_pack": (_P, _P, _P, _LL, _I, _P),
     "compu_match_candidates": (_P, _P, _P, _I, _P, _P, _LL, _LL, _I, _I, _P),
     "compu_adler_tiles": (_P, _P, _LL, _P),
+    "compu_fse_seq_scan": (_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -55,12 +56,12 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> pathlib.Path:
+def library_path(srcs=None, stem: str = "libcompu_kernels") -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() if srcs is None else srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libcompu_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -76,23 +77,25 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless this exact build exists; return its path.
-    Each source compiles in its own nvcc, all started together, and one
-    more links them. The library is written in a temporary directory and
-    renamed into place, so a process building at the same time never loads
-    a half-written file."""
-    out = library_path()
+def build(srcs=None, stem: str = "libcompu_kernels") -> pathlib.Path:
+    """Compile the kernels (or the given ``srcs`` into a library named by
+    ``stem``) unless this exact build exists; return its path. Each source
+    compiles in its own nvcc, all started together, and one more links
+    them. The library is written in a temporary directory and renamed into
+    place, so a process building at the same time never loads a
+    half-written file."""
+    srcs = sources() if srcs is None else list(srcs)
+    out = library_path(srcs, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in sources()]
+        objs = [pathlib.Path(tmp) / f"{src.stem}.o" for src in srcs]
         procs = [(src, subprocess.Popen(
                      [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-                 for src, obj in zip(sources(), objs)]
+                 for src, obj in zip(srcs, objs)]
         failed, logs = [], []
         for src, proc in procs:
             log = proc.communicate()[0]

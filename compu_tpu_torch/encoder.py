@@ -2,8 +2,8 @@
 
 The port's copy of ``compu_tpu/encoder.py::Encoder``: the 3-op protocol
 (Process/Flush/Finish) and its convenience layer (``encode_vec``,
-``encode_vec_full``). ``Interface`` holds the port's only
-constructor, ``zlib_device``. ``ByteVec`` and the status types are
+``encode_vec_full``). ``Interface`` holds the port's constructors,
+``zlib_device`` and ``zstd``. ``ByteVec`` and the status types are
 re-exported so a caller names only this module.
 """
 
@@ -75,3 +75,14 @@ class Interface:
 
         return Encoder(pipeline.DeviceDeflateEncoder(
             options, block_size=block_size, device=device))
+
+    @staticmethod
+    def zstd(options=None, device=None) -> Encoder:
+        """Zstandard frames over the device LZ stage, on ``device`` (CUDA
+        by default): the port has no host match finder. ``options`` is a
+        ``ZstdOptions``, whose ``device_literals`` and ``device_sequences``
+        move the literal streams and the sequences bitstream to the device
+        too."""
+        from .formats.zstd import pipeline
+
+        return Encoder(pipeline.ZstdEncoder(options, device=device))

@@ -1,5 +1,5 @@
 """The encode half of the backend plumbing (the port's copy of
-``EncoderBackend`` from ``compu_tpu/formats/base.py``).
+``EncoderBackend`` and ``CodecFailure`` from ``compu_tpu/formats/base.py``).
 
 An encoder backend stages input, cuts it into ``block_size`` chunks at
 absolute stream offsets (so chunked and one-shot encodes give the same
@@ -12,6 +12,17 @@ buffers. Undrained output is bounded: once it passes
 from __future__ import annotations
 
 from ..status import Encode, EncodeOp, EncodeStatus
+
+
+class CodecFailure(Exception):
+    """Raised by a format stage that cannot code its input (``code`` is
+    the format's error number); the zstd encoder catches it and writes the
+    part raw instead."""
+
+    def __init__(self, code: int, message: str = "corrupt stream") -> None:
+        super().__init__(message)
+        self.code = code
+        self.message = message
 
 
 class EncoderBackend:

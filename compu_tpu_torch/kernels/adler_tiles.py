@@ -6,7 +6,8 @@ x_0..x_{TILE-1}, the partials are ``[sum x_k, sum x_k * (TILE - k)]``, exact
 in int32. The port's contract drops the reference's (8, 128) Mosaic page:
 ``adler32_partials`` returns (T, 2) int32, where the reference's values sat
 at ``out[:, 0, :2]``. The input is any flat run of whole tiles, so one launch
-covers a flattened batch of blocks.
+covers a flattened batch of blocks: ``adler32_device`` takes a (B, N) batch
+and makes one launch a pass.
 
 ``adler32_partials`` dispatches by device: the CUDA kernel
 (``csrc/adler_tiles.cu``) for a CUDA tensor, the plain twin
@@ -15,6 +16,7 @@ covers a flattened batch of blocks.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .tables import ADLER_MOD
@@ -66,16 +68,29 @@ def adler32_partials(data: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"no adler32_partials for device {data.device}")
 
 
-def adler32_device(block: torch.Tensor, n: int) -> int:
-    """adler32 of ``block[:n]`` from the device's tile partials. The block
-    is zero past ``n``; the padding's only effect, advancing B by A once per
-    zero byte, is taken back algebraically."""
-    parts = adler32_partials(block).cpu().tolist()
-    a, b = 1, 0
-    for s, w in parts:
-        b = (b + TILE * a + w) % ADLER_MOD
-        a = (a + s) % ADLER_MOD
-    pad = block.shape[0] - int(n)
-    if pad:
-        b = (b - pad * a) % ADLER_MOD
-    return ((b << 16) | a) & 0xFFFFFFFF
+def adler32_device(blocks: torch.Tensor, lens):
+    """adler32 of each ``blocks[i, :lens[i]]`` of a (B, N) uint8 batch, from
+    one ``adler32_partials`` launch over the flat B*N run and one fetch;
+    returns a list of B ints. ``lens`` is a sequence of ints or a (B,)
+    integer tensor on any device. A single (N,) block with an int length is
+    the case B == 1 and returns an int.
+
+    Each block is zero past its length. The host combines its tiles: A
+    before tile t is 1 plus the byte sums of the tiles before it, and B is
+    the sum of ``TILE * A_t + w_t``, both mod 65521. The padding's only
+    effect, advancing B by A once per zero byte, is taken back
+    algebraically."""
+    if blocks.dim() == 1:
+        return adler32_device(blocks[None], [lens])[0]
+    B, N = blocks.shape
+    parts = adler32_partials(blocks.reshape(-1)).cpu().numpy().astype(np.int64)
+    parts = parts.reshape(B, N // TILE, 2)
+    s, w = parts[..., 0], parts[..., 1]
+    a_before = 1 + np.cumsum(s, axis=1) - s
+    b = np.sum(TILE * (a_before % ADLER_MOD) + w, axis=1) % ADLER_MOD
+    a = (1 + s.sum(axis=1)) % ADLER_MOD
+    if isinstance(lens, torch.Tensor):
+        lens = lens.cpu().numpy()
+    pad = N - np.asarray(lens, dtype=np.int64).reshape(B)
+    b = (b - pad * a) % ADLER_MOD
+    return [int(x) for x in (b << 16) | a]

@@ -3,7 +3,9 @@ extension, exact greedy cover and the merge across segment boundaries.
 
 Port of ``compu_tpu/kernels/deflate_jax_v2.py`` (``_u32_words``,
 ``_sort_stage``, ``_post_match``, ``_merge_seg_boundaries``,
-``cover_overflow``, ``match_and_parse``, ``match_and_parse_batch``). Every
+``cover_overflow``, ``match_and_parse``, ``match_and_parse_batch``, and the
+exports for the zstd/brotli hybrids, ``device_tokens`` and
+``device_match_tokens``). Every
 function takes a leading block dimension where the reference was vmapped;
 the candidate and cover stages run once over the flattened batch, through
 the device dispatch of ``lcp_match``, ``match_candidates`` and
@@ -187,10 +189,12 @@ def cover_overflow(is_tok, best_len):
 
 
 def match_and_parse_batch(datas: torch.Tensor, ns: torch.Tensor, *,
-                          depth: int = 8, wcap: int = WCAP, stride: int = 1,
+                          depth: int = 8, max_dist: int = consts.WINDOW_SIZE,
+                          wcap: int = WCAP, stride: int = 1,
                           lex_keys: int = 2, matcher: str = "lex"):
     """The LZ stage over a (B, N) uint8 block matrix with (B,) lengths.
     Returns (is_tok bool, best_len int64, best_dist int64), each (B, N).
+    Matches reach at most ``max_dist`` back (DEFLATE's window by default).
 
     ``matcher="lex"`` sorts windows lexicographically (``lcp_match``);
     ``"hash"`` sorts by the 3-byte hash (``match_candidates``), and then,
@@ -202,14 +206,14 @@ def match_and_parse_batch(datas: torch.Tensor, ns: torch.Tensor, *,
         words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in wbe]))
         bl_f, bd_f = lcp_candidates(
             words, ps.reshape(-1).to(torch.int32), depth=depth,
-            max_dist=consts.WINDOW_SIZE, block_elems=N // stride)
+            max_dist=max_dist, block_elems=N // stride)
     elif matcher == "hash":
         stride = 1
         hs, ps, *sw = _sort_stage(datas, ns, wcap=wcap)
         words = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in sw]))
         bl_f, bd_f = match_candidates(
             hs.reshape(-1).to(torch.int32), ps.reshape(-1).to(torch.int32), words,
-            depth=depth, max_dist=consts.WINDOW_SIZE, block_elems=N)
+            depth=depth, max_dist=max_dist, block_elems=N)
     else:
         raise ValueError(f"matcher must be 'lex' or 'hash', got {matcher!r}")
     best_len_s = bl_f.reshape(B, N // stride).to(torch.int64)
@@ -226,3 +230,45 @@ def match_and_parse(data: torch.Tensor, n, **kw):
     length -> (is_tok, best_len, best_dist), each (N,)."""
     ns = torch.as_tensor(n, dtype=torch.int64, device=data.device).reshape(1)
     return tuple(r[0] for r in match_and_parse_batch(data[None], ns, **kw))
+
+
+def device_tokens(data: torch.Tensor, n, *, depth: int = 8,
+                  max_dist: int = consts.WINDOW_SIZE) -> torch.Tensor:
+    """The shared LZ stage's cover as one packed (N,) int32: bit 0 is_tok,
+    bits 1-9 the match length (0 for a literal), bits 10-30 the distance
+    (21 bits, so ``max_dist < 2^21``). Port of ``device_tokens``."""
+    if not max_dist < (1 << 21):
+        raise ValueError(f"max_dist {max_dist} overflows the 21-bit field")
+    is_tok, best_len, best_dist = match_and_parse(data, n, depth=depth, max_dist=max_dist)
+    take = best_len >= consts.MIN_MATCH
+    mlen = torch.where(take, best_len, 0)
+    packed = 1 | (mlen << 1) | (torch.where(take, best_dist, 0) << 10)
+    return torch.where(is_tok, packed, 0).to(torch.int32)
+
+
+def device_match_tokens(data: torch.Tensor, n, *, depth: int = 8,
+                        max_dist: int = consts.WINDOW_SIZE, cap: int = 0):
+    """Matches only: ``(packed, count)`` with ``packed`` a (cap, 2) int32 of
+    ``pos | len << 20`` and ``dist`` per match in position order, rows from
+    ``count`` on set to -1, and ``count`` the number of matches (a 0-dim
+    tensor). ``count > cap`` means the matches did not fit: the caller
+    takes :func:`device_tokens` instead. ``cap`` defaults to N // 6 + 64.
+    Port of ``device_match_tokens``; ``jnp.nonzero(size=cap,
+    fill_value=N)`` is ``torch.nonzero`` padded with N or cut to cap."""
+    if not max_dist < (1 << 21):
+        raise ValueError(f"max_dist {max_dist} overflows the 21-bit field")
+    N = data.shape[0]
+    if N > (1 << 20):
+        raise ValueError(f"the pos field is 20 bits: N = {N} > 2^20")
+    cap = cap or (N // 6 + 64)
+    is_tok, best_len, best_dist = match_and_parse(data, n, depth=depth, max_dist=max_dist)
+    is_match = is_tok & (best_len >= consts.MIN_MATCH)
+    count = is_match.sum(dtype=torch.int32)
+    idx = torch.nonzero(is_match).reshape(-1)[:cap]
+    idx = F.pad(idx, (0, cap - idx.shape[0]), value=N)
+    live = torch.arange(cap, device=data.device) < count
+    pos = torch.where(live, idx, 0)
+    at = torch.clamp(idx, 0, N - 1)
+    a = torch.where(live, pos | (best_len[at] << 20), -1)
+    b = torch.where(live, best_dist[at], -1)
+    return torch.stack([a, b], 1).to(torch.int32), count

@@ -105,6 +105,29 @@ def test_adler32_device_equals_block_checksum():
         assert adler32_device(torch.from_numpy(blocks[b]), int(n)) == int(chk[b])
 
 
+RAGGED = [N, N - 777, 1, 0, 1024, N // 2 + 3]
+
+
+def _ragged_batch():
+    """Six blocks of N bytes, zero past ragged lengths (0 and 1 included)."""
+    kinds = ("text", "random", "ones", "text", "random", "ones")
+    blocks = np.stack([_bytes(k) for k in kinds])
+    for b, n in enumerate(RAGGED):
+        blocks[b, n:] = 0
+    return blocks
+
+
+@pytest.mark.parametrize("lens", [RAGGED, torch.tensor(RAGGED)], ids=["list", "tensor"])
+def test_batched_adler32_device_matches_per_block_and_zlib(lens):
+    """One call over a (B, N) batch gives each block's adler32: equal to the
+    single-block call and to zlib.adler32 of the block's bytes."""
+    blocks = _ragged_batch()
+    got = adler32_device(torch.from_numpy(blocks), lens)
+    assert got == [adler32_device(torch.from_numpy(blocks[b]), n)
+                   for b, n in enumerate(RAGGED)]
+    assert got == [zlib.adler32(blocks[b, :n].tobytes()) for b, n in enumerate(RAGGED)]
+
+
 def test_adler_wrapper_checks():
     with pytest.raises(ValueError, match="CUDA tensor"):
         adler32_partials_cuda(torch.zeros(TILE, dtype=torch.uint8))
@@ -124,3 +147,18 @@ def test_adler_kernel_matches_twin_gpu(cuda):
     block = torch.zeros(N, dtype=torch.uint8, device=cuda)
     block[:N - 777] = d[:N - 777]
     assert adler32_device(block, N - 777) == zlib.adler32(TEXT[:N - 777])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens_on", ["list", "cuda"])
+def test_batched_adler32_device_one_launch_gpu(cuda, lens_on):
+    """The batched call makes one kernel launch for the whole batch and
+    gives zlib's values, with the lengths as a list or a CUDA tensor."""
+    from compu_tpu_torch import _build
+
+    blocks = _ragged_batch()
+    lens = RAGGED if lens_on == "list" else torch.tensor(RAGGED, device=cuda)
+    _build.reset_launch_counts()
+    got = adler32_device(torch.from_numpy(blocks).to(cuda), lens)
+    assert _build.LAUNCHES["adler_tiles"] == 1
+    assert got == [zlib.adler32(blocks[b, :n].tobytes()) for b, n in enumerate(RAGGED)]
