@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives five paths of the port over the 16 MB benchmark corpus
+Drives six paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
 4 groups of 16, for the DEFLATE paths):
 
@@ -20,7 +20,11 @@ Drives five paths of the port over the 16 MB benchmark corpus
   device_literals=True, device_sequences=True))``:
   16 tokenizer calls of 1 MiB (B1 and B2 at 2^20 lanes, depth 8, max_dist
   131,071), 128 frame blocks of 128 KiB, each with one FSE sequence scan
-  (P1, ``csrc/fse_seq_scan.cu``), and the xxh64 checksum.
+  (P1, ``csrc/fse_seq_scan.cu``), and the xxh64 checksum;
+* **zstd_decode**: the decode of that frame back to the corpus through
+  ``decoder.Interface.zstd()`` (its default ``device_literals``), the
+  frame blocks' 4-stream literal sections each one launch of P2
+  (``csrc/huf_lit_decode.cu``), the sequences and xxh64 on the host.
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
@@ -32,9 +36,12 @@ failure:
    first 16 blocks; for B1 and B2 also the zstd path's first 1 MiB call;
    the adler tiles over the whole corpus in one launch, as adler_device
    makes it; P1 on the largest sequences section of the first MiB's zstd
-   encode), exactly, and time both with CUDA events: k back-to-back
+   encode; P2, after phase 6, on the largest literal section of the
+   zstd_device frame), exactly, and time both with CUDA events: k back-to-back
    launches between one pair of events, divided by k, the median of 5 such
-   runs (see ``device_ms``). Each kernel's bound is the larger of the bytes
+   runs (see ``device_ms``; a plain twin whose check call takes 0.1 s or
+   more, P1's and P2's, is timed by that call on the host clock, as
+   ``SLOW_TWIN_S`` says). Each kernel's bound is the larger of the bytes
    it must move over the card's memory rate and the integer operations it
    must do over the card's INT32 rate, both counted from this run's inputs
    (B1's cost per candidate read from the built kernel's SASS,
@@ -43,7 +50,8 @@ failure:
    dependent steps: its bound is its longest channel's step count times one
    dependent shared-memory round trip, measured in this run by a chain of
    shared-memory reads (``smoke_csrc/smem_chase.cu``, a library of this
-   script's own, printed as ``smem``);
+   script's own, printed as ``smem``); P2's the same with its longest lane's
+   steps;
 4. encode the corpus end to end on each DEFLATE encode path (one warm run,
    median of three each), check that zlib gives the corpus back, every
    block status is ok, and the path launched its kernels;
@@ -56,6 +64,11 @@ failure:
    call's bytes and every match's bytes to equal those at its distance,
    (iii) the first 2 MiB encoded on the CPU (the plain versions) to equal
    the card's frame, and the frame to walk as 128 blocks to its checksum;
+   then decode that frame on zstd_decode (median of three; nothing is
+   left to warm) and require every decode to give the corpus with status
+   Finished, the first 2 MiB's CPU frame to decode on the CPU (P2's plain
+   version) to the bytes the card gives, and, after P2's check, the host
+   literal route (``device_literals=False``) to give the corpus too;
 7. encode the first 4 blocks on the CPU (the twins) and on the card, on
    each DEFLATE encode path, and require equal bytes, metas and segment
    index;
@@ -65,16 +78,16 @@ The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 (with the ``bytes`` and ``ops`` it counts), ``bound_by``,
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
-``launches_per_encode``, and ``library_ms`` null with the reason: no one
-PyTorch call computes any of the six functions. Without a CUDA device it
-fails and prints no result.
+``launches_per_encode`` (per decode for P2), and ``library_ms`` null with
+the reason: no one PyTorch call computes any of the seven functions.
+Without a CUDA device it fails and prints no result.
 
-``--profile`` runs none of that. It encodes the corpus on each encode path
-once with every stage synchronised before and after (ms per stage), and
-once under ``torch.profiler``. From the profile it counts the CUDA kernels
-and copies, takes the union of their intervals as the device's busy time,
-and prints the idle share of the profiled wall time and the six kernels
-with the most device time, one JSON line a path.
+``--profile`` runs none of that. It encodes the corpus on each encode path,
+and decodes the zstd frame, once with every stage synchronised before and
+after (ms per stage), and once under ``torch.profiler``. From the profile
+it counts the CUDA kernels and copies, takes the union of their intervals
+as the device's busy time, and prints the idle share of the profiled wall
+time and the six kernels with the most device time, one JSON line a path.
 """
 
 from __future__ import annotations
@@ -97,13 +110,14 @@ import zlib
 import numpy as np
 import torch
 
-from compu_tpu_torch import BlockParallelEncoder, ZlibMode, ZlibOptions, _build
-from compu_tpu_torch import make_block_encode_fn
+from compu_tpu_torch import BlockParallelEncoder, DecodeStatus, ZlibMode, ZlibOptions, _build
+from compu_tpu_torch import decoder, make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
+from compu_tpu_torch.formats.zstd import decode as zstd_decode_mod
 from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
 from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
-from compu_tpu_torch.formats.zstd.options import ZstdOptions
-from compu_tpu_torch.kernels import deflate_v2, deflate_v3, u32, zstd_seq
+from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
+from compu_tpu_torch.kernels import deflate_v2, deflate_v3, u32, zstd_lit_decode, zstd_seq
 from compu_tpu_torch.kernels.adler_tiles import (
     adler32_device,
     adler32_partials_cuda,
@@ -135,6 +149,7 @@ from compu_tpu_torch.kernels.match_candidates import (
     match_candidates_torch,
 )
 from compu_tpu_torch.kernels.parse_cover import jump_targets, parse_cover_cuda, parse_cover_torch
+from compu_tpu_torch.kernels.zstd_lit_decode import huf_decode_lanes_cuda, huf_decode_lanes_torch
 from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_torch
 from compu_tpu_torch.ops.xxhash import xxh64
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
@@ -166,11 +181,12 @@ PATHS = {
     **{p: ("match_candidates", "parse_cover", "emit_pack") for p in HASH_PATHS},
     "adler_device": ("adler_tiles",),
     "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
+    "zstd_decode": ("huf_decode_lanes",),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All six kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All seven kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -185,7 +201,7 @@ COLD_BYTES = 100 << 20
 LCP_COST: dict = {}
 MATCH_COST: dict = {}
 # This script's own CUDA sources, built beside the package's kernels: the
-# shared-memory chase that measures P1's bound unit.
+# shared-memory chase that measures P1's and P2's bound unit.
 SMOKE_SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "smoke_csrc").glob("*.cu"))
 
 
@@ -328,6 +344,21 @@ def scan_work(args, kw, outs):
                       f"shared memory (smoke_csrc/smem_chase.cu)"}
 
 
+def lit_decode_work(args, kw, outs):
+    """The longest lane's chain: min(count, max_steps) dependent steps, each
+    at least one shared-memory round trip (the table read), as
+    :func:`scan_work`. Bytes: the streams, lane counts and tables in, the
+    literals and flags out."""
+    counts = args[2]
+    steps = int(torch.clamp(counts, 0, kw["max_steps"]).max())
+    smem = smem_round_trip()
+    return _nbytes(*args, *outs), steps, {
+        "ops_ms": steps * smem["ns"] * 1e-6, "ns_per_op": smem["ns"],
+        "bound_note": f"the longest lane's dependent steps x one shared-memory read, "
+                      f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
+                      f"run (smoke_csrc/smem_chase.cu)"}
+
+
 @functools.lru_cache(maxsize=1)
 def smem_round_trip(steps: int = 1 << 20) -> dict:
     """One dependent shared-memory read on this card: one thread chases
@@ -409,8 +440,7 @@ class Kernel:
     is held to its twin (the first gives its report entry). ``work`` gives
     (bytes, ops) of one call, and for a kernel bound by a chain of dependent
     steps rather than by the INT32 rate a third item: the ops' time
-    (``ops_ms``) with its basis, which goes into the report. ``twin_k`` is
-    the twin calls per event pair."""
+    (``ops_ms``) with its basis, which goes into the report."""
 
     kernel: object
     twin: object
@@ -419,7 +449,6 @@ class Kernel:
     paths: tuple
     work: object
     replaces_note: str | None = None
-    twin_k: int = 20
 
 
 KERNELS = {
@@ -442,13 +471,20 @@ KERNELS = {
                           "compu_tpu_torch/csrc/adler_tiles.cu",
                           "compu_tpu/kernels/pallas_kernels.py:31", ("adler_device",),
                           adler_work),
-    # The plain version is a Python loop of ~10 launches a step: one call
-    # per event pair.
     "fse_seq_scan": Kernel(fse_seq_scan_cuda, fse_seq_scan_torch,
                            "compu_tpu_torch/csrc/fse_seq_scan.cu",
                            "compu_tpu/kernels/zstd_seq_jax.py:84", ("zstd_device",), scan_work,
-                           replaces_note="a jax.lax.scan, not a TPU kernel", twin_k=1),
+                           replaces_note="a jax.lax.scan, not a TPU kernel"),
+    "huf_decode_lanes": Kernel(huf_decode_lanes_cuda, huf_decode_lanes_torch,
+                               "compu_tpu_torch/csrc/huf_lit_decode.cu",
+                               "compu_tpu/kernels/zstd_lit_decode_jax.py:32", ("zstd_decode",),
+                               lit_decode_work,
+                               replaces_note="a jax.lax.fori_loop, not a TPU kernel"),
 }
+# A twin whose call for the equality check takes this long or more (P1's
+# and P2's, Python loops of tiny launches a step) is timed by that call on
+# the host clock, synchronised; the others with device_ms.
+SLOW_TWIN_S = 0.1
 
 
 def log(msg: str) -> None:
@@ -551,12 +587,15 @@ def as_tuple(x):
 
 def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all six are integer functions), both timed, and the
+    (tolerance 0: all seven are integer functions), both timed, and the
     kernel's bound from the same inputs."""
     kernel, twin = spec.kernel, spec.twin
     got = as_tuple(kernel(*args, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = as_tuple(twin(*args, **kw))
     torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     same = all(torch.equal(g, w) for g, w in zip(got, want))
@@ -569,7 +608,7 @@ def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = chain.pop("ops_ms", ops / INT32_OPS_PER_S * 1e3)
     ms = device_ms(kernel, args, kw, k=50)
-    plain_ms = device_ms(twin, args, kw, k=spec.twin_k)
+    plain_ms = twin_s * 1e3 if twin_s >= SLOW_TWIN_S else device_ms(twin, args, kw, k=20)
     res = {"path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -582,14 +621,13 @@ def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     return res
 
 
-def check_kernels(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
-                  zstd_call: torch.Tensor, scan_args) -> list[dict]:
-    """Each kernel against its plain twin on the card, at each of its paths'
-    shapes. A kernel held at more than one path's shapes reports the others
-    under ``other_paths``."""
+def check_kernels(inputs: dict, names) -> list[dict]:
+    """Each kernel of ``names`` against its plain twin on the card, at each
+    of its paths' shapes (``inputs[kernel, path]``). A kernel held at more
+    than one path's shapes reports the others under ``other_paths``."""
     report = []
-    inputs = kernel_inputs(blocks, lens, flat, zstd_call, scan_args)
-    for name, spec in KERNELS.items():
+    for name in names:
+        spec = KERNELS[name]
         first, *others = [hold_to_twin(name, p, spec, *inputs[name, p]) for p in spec.paths]
         if name == "match_candidates":
             for res in (first, *others):
@@ -833,10 +871,11 @@ def walk_frame(frame: bytes, data: bytes) -> int:
     return blocks
 
 
-def zstd_device_path(corpus: bytes) -> dict:
+def zstd_device_path(corpus: bytes):
     """The device zstd encode of the corpus: one warm encode, whose
     tokenizer calls are kept for check (ii), then three timed; then checks
-    (i) and (iii) and the frame's structure."""
+    (i) and (iii) and the frame's structure. Returns the measurements, the
+    frame and the CPU's frame of the first 2 MiB."""
     dev = torch.device("cuda")
     calls = []
 
@@ -888,7 +927,125 @@ def zstd_device_path(corpus: bytes) -> dict:
            "ratio": len(corpus) / len(frame), "median_s": sec, "runs_s": times,
            "MBps": len(corpus) / sec / 1e6, "launches": launches, "runs_counted": 4}
     log("e2e " + json.dumps(res))
-    return res
+    return res, frame, cpu
+
+
+def zstd_decode(frame: bytes, device, device_literals: bool = True) -> bytes:
+    """One frame through ``decoder.Interface.zstd`` on ``device``; raises
+    unless the decode finishes with the whole frame consumed."""
+    dec = decoder.Interface.zstd(ZstdDecodeOptions(device_literals=device_literals),
+                                 device=device)
+    vec = ByteVec()
+    res = dec.decode_vec_full(frame, vec)
+    if res.is_error or res.status is not DecodeStatus.Finished or res.input_remain:
+        raise AssertionError(f"zstd decode did not finish: {res}")
+    return vec.data()
+
+
+def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
+    """The zstd_device frame decoded on the card three times, timed (P2 is
+    built before; the first decode keeps its largest literal section's P2
+    arguments for the kernel report); each must give the corpus. Then the
+    first 2 MiB's CPU frame decodes on the CPU (P2's plain version) to the
+    bytes the card gives, P2 is held to its twin on the kept section, and
+    last the host literal route gives the corpus, so that nothing else runs
+    on the host while a time is taken. Returns the measurements and P2's
+    kernel report entry."""
+    dev = torch.device("cuda")
+    kept = {"sections": 0, "steps": 0}
+    lanes = zstd_lit_decode.huf_decode_lanes
+
+    def recording(*args):
+        kept["sections"] += 1
+        kept["steps"] += args[-1]
+        if args[-1] > kept.get("max_steps", 0):
+            kept.update(max_steps=args[-1], args=tuple(a.clone() for a in args[:-1]))
+        return lanes(*args)
+
+    def timed_decode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = zstd_decode(frame, dev)
+        return out, time.perf_counter() - t0
+
+    def decodes():
+        zstd_lit_decode.huf_decode_lanes = recording
+        try:
+            runs = [timed_decode()]
+        finally:
+            zstd_lit_decode.huf_decode_lanes = lanes
+        return runs + [timed_decode() for _ in range(2)]
+
+    runs, launches = run_path("zstd_decode", decodes)
+    if any(out != corpus for out, _ in runs):
+        raise AssertionError("a decode of the zstd_device frame differs from the corpus")
+    times = [t for _, t in runs]
+    log(f"huf_decode_lanes inputs: the frame's largest literal section, "
+        f"{kept['max_steps']} steps a lane, scap {kept['args'][0].shape[1]}; the frame's "
+        f"{kept['sections']} sections take {kept['steps']} steps of their longest lanes")
+    head = corpus[:ZSTD_CPU_BYTES]
+    t0 = time.perf_counter()
+    cpu = zstd_decode(head_frame, "cpu")
+    t_cpu = time.perf_counter() - t0
+    if cpu != head or zstd_decode(head_frame, dev) != cpu:
+        raise AssertionError("the first 2 MiB's frame decodes to other bytes on the CPU "
+                             "and the card")
+    kernel = check_kernels({("huf_decode_lanes", "zstd_decode"): (
+        kept["args"], {"max_steps": kept["max_steps"]})}, ["huf_decode_lanes"])
+    t0 = time.perf_counter()
+    if zstd_decode(frame, "cpu", device_literals=False) != corpus:
+        raise AssertionError("the host literal route's decode differs from the corpus")
+    t_host = time.perf_counter() - t0
+    log(f"zstd_decode: 3 card decodes give the corpus; the host literal route too "
+        f"({t_host:.1f} s); cpu == gpu decode of the first {len(head)} bytes "
+        f"(cpu run {t_cpu:.1f} s)")
+    sec = statistics.median(times)
+    res = {"path": "zstd_decode", "bytes": len(corpus), "compressed": len(frame),
+           "ratio": len(corpus) / len(frame), "median_s": sec, "runs_s": times,
+           "MBps": len(corpus) / sec / 1e6, "host_literals_s": t_host,
+           "p2_sections": kept["sections"], "p2_longest_lane_steps": kept["steps"],
+           "launches": launches, "runs_counted": 3}
+    log("e2e " + json.dumps(res))
+    return res, kernel
+
+
+def zstd_decode_stage_ms(frame: bytes) -> dict:
+    """One zstd_decode with each stage synchronised before and after: ms in
+    the literal sections (P2 inside), the sequence execution, xxh64, and the
+    rest of the decode."""
+    times = {"_decode_literals": 0.0, "_execute_sequences": 0.0, "xxh64": 0.0}
+    cls = zstd_decode_mod.ZstdFrameDecoder
+    saved = {"_decode_literals": cls._decode_literals,
+             "_execute_sequences": cls._execute_sequences, "xxh64": zstd_decode_mod.xxh64}
+
+    def timed(name):
+        fn = saved[name]
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    cls._decode_literals = timed("_decode_literals")
+    cls._execute_sequences = timed("_execute_sequences")
+    zstd_decode_mod.xxh64 = timed("xxh64")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zstd_decode(frame, torch.device("cuda"))
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        cls._decode_literals = saved["_decode_literals"]
+        cls._execute_sequences = saved["_execute_sequences"]
+        zstd_decode_mod.xxh64 = saved["xxh64"]
+    times["rest"] = total - sum(times.values())
+    times["total"] = total
+    return times
 
 
 def zstd_stage_ms(corpus: bytes) -> dict:
@@ -1032,6 +1189,16 @@ def profile_main(corpus: bytes) -> None:
     res = {"path": "zstd_device", "wall_ms": wall_ms, "stages_ms": zstd_stage_ms(corpus),
            **device_profile(encode)}
     log("profile " + json.dumps(res))
+    frame = encode()
+    decode = functools.partial(zstd_decode, frame, torch.device("cuda"))
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {"path": "zstd_decode", "wall_ms": wall_ms, "stages_ms": zstd_decode_stage_ms(frame),
+           **device_profile(decode)}
+    log("profile " + json.dumps(res))
 
 
 def main() -> None:
@@ -1067,18 +1234,21 @@ def main() -> None:
     blocks, lens = split_blocks(corpus)
     scan_args = record_scan_inputs(corpus[:ZSTD_SPAN])
     zstd_call = torch.from_numpy(np.frombuffer(corpus[:ZSTD_SPAN], np.uint8).copy()[None]).cuda()
-    kernels = check_kernels(torch.from_numpy(blocks[:16]).cuda(),
-                            torch.from_numpy(lens[:16]).cuda(),
-                            torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args)
+    kernels = check_kernels(
+        kernel_inputs(torch.from_numpy(blocks[:16]).cuda(), torch.from_numpy(lens[:16]).cuda(),
+                      torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args),
+        [name for name in KERNELS if name != "huf_decode_lanes"])
     runs = {"gzip_lex": gzip_lex_path(corpus)}
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
-    runs["zstd_device"] = zstd_device_path(corpus)
+    runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
+    runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
+    kernels += p2_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
-        for p in ("gzip_lex", *HASH_PATHS, "zstd_device")))
+        for p in ("gzip_lex", *HASH_PATHS, "zstd_device", "zstd_decode")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]

@@ -1,0 +1,126 @@
+"""The streaming decoder over the port's format backends.
+
+The port's copy of ``compu_tpu/decoder.py``: ``Decoder`` owns one decode
+pipeline and exposes the raw layer (``decode``) and the convenience layer
+(``decode_vec``, ``decode_vec_full``, ``decode_buf``); ``Interface`` is a
+registry of pipeline factories with the port's constructors, of which
+there is one so far, ``zstd``. ``ByteVec`` and the status types are
+re-exported so a caller names only this module.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+from .formats.base import DecoderBackend
+from .status import Decode, DecodeError, DecodeStatus
+from .vec import ByteVec
+
+__all__ = ["ByteVec", "Decode", "DecodeError", "DecodeStatus", "Decoder", "Interface"]
+
+
+class Decoder:
+    """Owns one decode pipeline and drives it through the status contract."""
+
+    __slots__ = ("_backend",)
+
+    def __init__(self, backend: DecoderBackend) -> None:
+        self._backend = backend
+
+    @property
+    def name(self) -> str:
+        return self._backend.name
+
+    # -- raw layer -----------------------------------------------------------
+    def decode(self, inp, out) -> Decode:
+        """Decode ``inp`` into the writable buffer ``out``.
+
+        Never allocates output: only the provided buffer is written.
+        Returns byte counts left in each buffer plus the status.
+        """
+        return self._backend.decode(inp, out)
+
+    # -- convenience layer ---------------------------------------------------
+    def decode_vec(self, inp, vec: ByteVec) -> Decode:
+        """Decode into ``vec``'s spare capacity, advancing its length."""
+        spare = vec.spare_capacity_mut()
+        result = self.decode(inp, spare)
+        vec.add_len(len(spare) - result.output_remain)
+        return result
+
+    def decode_vec_full(self, inp, vec: ByteVec) -> Decode:
+        """Decode a complete stream, growing ``vec`` as needed: the first
+        reservation grows with the input in size tiers, later ones are
+        1 KiB below 64 KiB of output and 8 KiB above."""
+        size = len(inp)
+        if size < 1024:
+            vec.reserve_exact(size if size > 0 else 64)
+        elif size < 16_384:
+            vec.reserve_exact(size + size // 3)
+        elif size < 65_536:
+            vec.reserve_exact(size + size // 2)
+        else:
+            vec.reserve_exact(2 * size)
+        inp = memoryview(inp)
+        while True:
+            result = self.decode_vec(inp, vec)
+            if result.is_error or result.status is not DecodeStatus.NeedOutput:
+                return result
+            inp = inp[len(inp) - result.input_remain :]
+            vec.reserve_exact(1024 if len(vec) < 65_536 else 8192)
+
+    def decode_buf(self, inp, out_buf) -> Decode:
+        """Decode into a growable sink. Sinks exposing
+        ``chunk_mut()``/``advance_mut()`` are written in place, chunk by
+        chunk; plain ``bytearray`` sinks get each 64 KiB chunk appended."""
+        inp = memoryview(inp)
+        lending = hasattr(out_buf, "chunk_mut") and hasattr(out_buf, "advance_mut")
+        staged = None if lending else bytearray(65_536)
+        while True:
+            chunk = out_buf.chunk_mut() if lending else staged
+            result = self.decode(inp, chunk)
+            produced = len(chunk) - result.output_remain
+            if lending:
+                out_buf.advance_mut(produced)
+            else:
+                out_buf.extend(chunk[:produced])
+            if result.is_error or result.status is not DecodeStatus.NeedOutput:
+                return Decode(result.input_remain, result.output_remain, result.status)
+            inp = inp[len(inp) - result.input_remain :]
+
+    def reset(self) -> bool:
+        """Re-arm for a new stream without losing options."""
+        return self._backend.reset()
+
+    def describe_error(self, error) -> Optional[str]:
+        code = error.code if isinstance(error, DecodeError) else int(error)
+        return self._backend.describe_error(code)
+
+
+class Interface:
+    """Registry of decode pipeline factories, and the port's constructors."""
+
+    _registry: Dict[str, Callable[..., DecoderBackend]] = {}
+
+    @classmethod
+    def register(cls, name: str, factory: Callable[..., DecoderBackend]) -> None:
+        cls._registry[name] = factory
+
+    @classmethod
+    def new(cls, name: str, *args, **kwargs) -> Decoder:
+        try:
+            factory = cls._registry[name]
+        except KeyError:
+            raise ValueError(f"unknown decoder backend: {name!r}") from None
+        return Decoder(factory(*args, **kwargs))
+
+    # -- convenience constructors -------------------------------------------
+    @staticmethod
+    def zstd(options=None, device=None) -> Decoder:
+        """Zstandard frames. ``options`` is a ``ZstdDecodeOptions``; by
+        default (its ``device_literals``) the 4-stream literal sections
+        decode on ``device`` (CUDA unless the caller passes ``"cpu"``, which
+        runs the kernel's plain version), the rest on the host."""
+        from .formats.zstd import pipeline
+
+        return Decoder(pipeline.ZstdDecoder(options, device=device))

@@ -1,28 +1,170 @@
-"""The encode half of the backend plumbing (the port's copy of
-``EncoderBackend`` and ``CodecFailure`` from ``compu_tpu/formats/base.py``).
+"""Backend plumbing shared by the format pipelines (the port's copy of
+``DecoderBackend``, ``EncoderBackend`` and ``CodecFailure`` from
+``compu_tpu/formats/base.py``).
+
+A decoder backend stages input, lets its format decode as far as the
+staged bytes allow, and drains the decoded bytes through the caller's
+buffers. Undrained output is bounded: once it passes
+``pending_high_water``, further input is refused (reported in
+``input_remain``) until the caller drains.
 
 An encoder backend stages input, cuts it into ``block_size`` chunks at
 absolute stream offsets (so chunked and one-shot encodes give the same
 bytes), compresses each chunk, and drains the output through the caller's
-buffers. Undrained output is bounded: once it passes
-``pending_high_water``, ``Process`` refuses further input (reported in
-``input_remain``) until the caller drains.
+buffers. Undrained output is bounded the same way: once it passes
+``pending_high_water``, ``Process`` refuses further input.
 """
 
 from __future__ import annotations
 
-from ..status import Encode, EncodeOp, EncodeStatus
+from typing import Optional
+
+from ..status import Decode, DecodeError, DecodeStatus, Encode, EncodeOp, EncodeStatus
 
 
 class CodecFailure(Exception):
-    """Raised by a format stage that cannot code its input (``code`` is
-    the format's error number); the zstd encoder catches it and writes the
-    part raw instead."""
+    """Raised by a format stage on a malformed stream, or one that cannot
+    code its input. ``code`` is the format's error number: a decoder
+    surfaces it as ``DecodeError``; the zstd encoder catches it and writes
+    the part raw instead."""
 
     def __init__(self, code: int, message: str = "corrupt stream") -> None:
         super().__init__(message)
         self.code = code
         self.message = message
+
+
+class DecoderBackend:
+    """Base class for decode pipelines. Subclasses implement:
+
+    * ``_pump()``: consume bytes from ``self._staged`` starting at
+      ``self._staged_pos`` (advancing it), append decoded bytes to
+      ``self._pending``, and set ``self._finished = True`` once the stream's
+      trailer has been consumed and verified. Must be resumable: called
+      whenever new input arrives; decode as far as the available bytes
+      allow and return (keeping any partial-unit tail unconsumed).
+      Raise :class:`CodecFailure` on corruption.
+    * ``_do_reset()``: drop all stream state; options survive.
+    * ``ERRORS``: dict code -> static message for ``describe_error``.
+    """
+
+    name = "?"
+    ERRORS: dict[int, str] = {}
+    #: Back-pressure threshold: once this many undrained decoded bytes are
+    #: pending, new input is refused (reported via ``input_remain``) until
+    #: the caller drains output.
+    pending_high_water = 1 << 20
+
+    def __init__(self) -> None:
+        self._init_stream_state()
+
+    def _init_stream_state(self) -> None:
+        self._staged = bytearray()
+        self._staged_pos = 0
+        self._pending = bytearray()
+        self._pending_pos = 0
+        self._finished = False
+        self._error: Optional[DecodeError] = None
+
+    # -- hooks ---------------------------------------------------------------
+    def _pump(self) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _do_reset(self) -> None:
+        pass
+
+    def _rebase_input(self, nbytes: int) -> None:
+        """Notify the format that ``nbytes`` were dropped from the front of
+        ``_staged`` (compaction); formats keeping absolute offsets into the
+        staged buffer shift them here. Default: nothing keeps offsets."""
+
+    # -- internal helpers -----------------------------------------------------
+    def _drain(self, out) -> int:
+        """Move pending bytes into ``out``; returns bytes written."""
+        avail = len(self._pending) - self._pending_pos
+        n = min(avail, len(out))
+        if n:
+            out[:n] = self._pending[self._pending_pos : self._pending_pos + n]
+            self._pending_pos += n
+            if self._pending_pos == len(self._pending):
+                self._pending = bytearray()
+                self._pending_pos = 0
+            elif self._pending_pos > (1 << 16):
+                del self._pending[: self._pending_pos]
+                self._pending_pos = 0
+        return n
+
+    def _compact_staged(self) -> None:
+        if self._staged_pos > (1 << 16):
+            drop = self._staged_pos
+            del self._staged[:drop]
+            self._staged_pos = 0
+            self._rebase_input(drop)
+
+    # -- generic state machine ----------------------------------------------
+    def decode(self, inp, out) -> Decode:
+        inp = memoryview(inp).cast("B") if len(inp) else memoryview(b"")
+        out = memoryview(out).cast("B") if len(out) else memoryview(bytearray())
+        if self._error is not None:
+            return Decode(len(inp), len(out), self._error)
+
+        # Drain already-pending bytes first so back-pressure releases as
+        # soon as the caller offers output space.
+        written = self._drain(out)
+        consumed = 0
+        backlog = len(self._pending) - self._pending_pos
+        if not self._finished and backlog < self.pending_high_water:
+            self._staged.extend(inp)
+            consumed = len(inp)
+            # Pump until the stream finishes, back-pressure engages, or the
+            # format genuinely needs more input (no progress). A single
+            # pump can stop early at its sink budget; with a large caller
+            # buffer the drain empties pending again, so keep going —
+            # otherwise the call would report NeedInput with decodable
+            # input still staged.
+            while True:
+                before_pos = self._staged_pos
+                before_avail = len(self._pending) - self._pending_pos
+                try:
+                    self._pump()
+                except CodecFailure as failure:
+                    self._error = DecodeError(failure.code)
+                    return Decode(len(inp), len(out), self._error)
+                progressed = (
+                    self._staged_pos != before_pos
+                    or len(self._pending) - self._pending_pos != before_avail
+                )
+                self._compact_staged()
+                if self._finished:
+                    # Bytes past the end of the stream are not ours to
+                    # consume; attribute the excess to the current input
+                    # slice.
+                    excess = len(self._staged) - self._staged_pos
+                    consumed = len(inp) - min(excess, len(inp))
+                    break
+                written += self._drain(out[written:])
+                if not progressed:
+                    break
+                if len(self._pending) - self._pending_pos >= self.pending_high_water:
+                    break
+            written += self._drain(out[written:])
+        if len(self._pending) - self._pending_pos > 0:
+            status = DecodeStatus.NeedOutput
+        elif self._finished:
+            status = DecodeStatus.Finished
+        else:
+            status = DecodeStatus.NeedInput
+        return Decode(len(inp) - consumed, len(out) - written, status)
+
+    def reset(self) -> bool:
+        self._init_stream_state()
+        self._do_reset()
+        return True
+
+    def describe_error(self, code: int) -> Optional[str]:
+        if code == 0:
+            return "unknown error"  # DecodeError.no_error()
+        return self.ERRORS.get(code)
 
 
 class EncoderBackend:

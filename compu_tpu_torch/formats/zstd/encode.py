@@ -379,18 +379,19 @@ def _sequences_bitstream_device(seqs, ll_codes, ml_codes, of_codes,
 
 def compress_block(data: bytes, tokenizer=None, reuse: dict | None = None,
                    device_literals: bool = False, device_sequences: bool = False,
-                   device=None) -> bytes:
+                   device=None, block_max: int = MAX_BLOCK) -> bytes:
     """One zstd block body (compressed type), or raw/RLE when better.
     Returns the full block including its 3-byte header. ``tokenizer(data)``
     gives the block's token cover; the port has no host match finder, so
     it is required. The literals and the sequences bitstream are packed on
-    ``device`` where ``device_literals``/``device_sequences`` ask for it."""
+    ``device`` where ``device_literals``/``device_sequences`` ask for it.
+    ``block_max`` is the frame's Block_Maximum_Size, min(window, 128 KiB)."""
     if tokenizer is None:
         raise ValueError("compress_block needs a tokenizer: the port has no "
                          "host match finder (use the device LZ stage)")
     n = len(data)
-    if not 0 < n <= MAX_BLOCK:
-        raise ValueError(f"a block holds 1..{MAX_BLOCK} bytes, got {n}")
+    if not 0 < n <= block_max:
+        raise ValueError(f"a block holds 1..{block_max} bytes, got {n}")
 
     def header(btype, size, last=0):
         h = last | (btype << 1) | (size << 3)
@@ -459,7 +460,10 @@ def _slice_token_cover(tok_pos, tok_len, tok_dist, off: int, end: int):
 class ZstdStreamEncoder:
     """Frame-level streaming encoder (hooks for the pipeline backend), on
     the device LZ stage: one tokenizer call per ``tokenizer_span`` bytes
-    staged, one frame block per MAX_BLOCK slice of its cover. Matches stay
+    staged, one frame block per ``block_max`` slice of its cover, where
+    ``block_max = min(2^window_log, MAX_BLOCK)`` is RFC 8878's
+    Block_Maximum_Size (the reference cuts at MAX_BLOCK whatever the
+    window, which stock zstd rejects below window_log 17). Matches stay
     within ``min(2^window_log - 1, MAX_BLOCK)``, so distances across frame
     blocks are legal zstd (the decoder's window spans blocks).
 
@@ -476,6 +480,7 @@ class ZstdStreamEncoder:
 
         self.checksum = checksum
         self.window_log = window_log
+        self.block_max = min(MAX_BLOCK, 1 << window_log)
         self.device_literals = device_literals
         self.device_sequences = device_sequences
         self.device = torch.device("cuda" if device is None else device)
@@ -503,7 +508,7 @@ class ZstdStreamEncoder:
         blob = compress_block(data, tokenizer=tokenizer, reuse=self._reuse,
                               device_literals=self.device_literals,
                               device_sequences=self.device_sequences,
-                              device=self.device)
+                              device=self.device, block_max=self.block_max)
         if final:
             blob = bytes([blob[0] | 1]) + blob[1:]
         return blob
@@ -516,14 +521,15 @@ class ZstdStreamEncoder:
         if not data:
             # Empty final block (raw, size 0).
             return struct.pack("<I", 1 | (0 << 1) | 0)[:3]
-        if len(data) <= MAX_BLOCK:
+        blk = self.block_max
+        if len(data) <= blk:
             return self._block(data, self.tokenizer, final)
         # One device tokenizer call over the whole staged chunk, then one
-        # frame block per MAX_BLOCK slice of the token cover.
+        # frame block per ``block_max`` slice of the token cover.
         out = bytearray()
         tok_pos, tok_len, tok_dist = self.tokenizer(data)
-        for off in range(0, len(data), MAX_BLOCK):
-            end = min(off + MAX_BLOCK, len(data))
+        for off in range(0, len(data), blk):
+            end = min(off + blk, len(data))
             sub = _slice_token_cover(tok_pos, tok_len, tok_dist, off, end)
             out.extend(self._block(data[off:end], lambda d, s=sub: s,
                                    final and end >= len(data)))

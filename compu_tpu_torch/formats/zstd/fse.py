@@ -1,11 +1,10 @@
-"""FSE (Finite State Entropy, tANS) — RFC 8878 §4.1: the encoder's half.
+"""FSE (Finite State Entropy, tANS) — RFC 8878 §4.1.
 
 The port's copy of ``compu_tpu/formats/zstd/fse.py``: the zstd
-symbol-spread algorithm, both bit writers, the encoder-side state machine
-(classic FSE CTable semantics: deltaNbBits / deltaFindState) and the table
-description writer. The backward bit reader, the decode table and the
-description reader are here only because the Huffman weight description
-checks itself by decoding (``huff.py::decode_weights``).
+symbol-spread algorithm, the decode table, the backward bit reader both
+zstd bitstream kinds use, both bit writers, the encoder-side state machine
+(classic FSE CTable semantics: deltaNbBits / deltaFindState), and the
+table description reader and writer.
 """
 
 from __future__ import annotations

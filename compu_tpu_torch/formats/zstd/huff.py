@@ -1,11 +1,11 @@
-"""zstd-flavor canonical Huffman (RFC 8878 §4.2), the encoder's half:
-code lengths capped at 11 bits, the weight description (FSE-compressed or
-direct) and backward literal streams.
+"""zstd-flavor canonical Huffman (RFC 8878 §4.2): code lengths capped at
+11 bits, the weight description (FSE-compressed or direct), backward
+literal streams, and the decode table.
 
-The port's copy of ``compu_tpu/formats/zstd/huff.py`` (``HufEncoder``,
-``normalize_counts``, and ``decode_weights``, which the FSE weight
-description uses to check itself). The reference's native weight-stream
-writer is not carried over: the weights always take the Python writer.
+The port's copy of ``compu_tpu/formats/zstd/huff.py`` (``HufTable``,
+``decode_weights``, ``HufEncoder``, ``normalize_counts``). The reference's
+native weight-stream and literal-stream writers are not carried over: the
+port always takes the Python writers.
 """
 
 from __future__ import annotations
@@ -26,6 +26,63 @@ from .fse import (
 
 ERR_HUF = 302
 MAX_BITS = 11
+
+
+class HufTable:
+    """Decode table: flat 2^M entries indexed by the next M stream bits
+    (read MSB-down by the backward reader)."""
+
+    __slots__ = ("max_bits", "symbol", "nbits")
+
+    def __init__(self, weights: list[int]) -> None:
+        total = sum((1 << (w - 1)) for w in weights if w > 0)
+        if total == 0:
+            raise CodecFailure(ERR_HUF, "empty huffman table")
+        m = (total - 1).bit_length()
+        if (1 << m) != total or m > MAX_BITS:
+            raise CodecFailure(ERR_HUF, "invalid huffman weights")
+        self.max_bits = m
+        size = 1 << m
+        self.symbol = np.zeros(size, dtype=np.int32)
+        self.nbits = np.zeros(size, dtype=np.int32)
+        # Canonical fill: ascending weight (longest codes first), symbols in
+        # natural order within a weight; each weight-w symbol spans 2^(w-1)
+        # consecutive cells.
+        pos = 0
+        for w in range(1, m + 1):
+            span = 1 << (w - 1)
+            nb = m + 1 - w
+            for s, ws in enumerate(weights):
+                if ws == w:
+                    self.symbol[pos : pos + span] = s
+                    self.nbits[pos : pos + span] = nb
+                    pos += span
+        if pos != size:
+            raise CodecFailure(ERR_HUF, "oversubscribed huffman weights")
+
+    def decode_stream(self, data: bytes, count: int) -> bytes:
+        """Decode ``count`` symbols from one backward stream. The bit
+        counter may run 32 bits past the stream's start (zero bits are
+        read there); a symbol past that, or an empty cell, is corrupt."""
+        reader = BackwardBitReader(data)
+        m = self.max_bits
+        out = bytearray()
+        sym = self.symbol
+        nbits = self.nbits
+        value = reader.value
+        bits = reader.bits
+        mask = (1 << m) - 1
+        for _ in range(count):
+            bits -= m
+            idx = (value >> bits) & mask if bits >= 0 else (value << -bits) & mask
+            nb = int(nbits[idx])
+            if nb == 0:
+                raise CodecFailure(ERR_HUF, "corrupt huffman stream")
+            out.append(int(sym[idx]))
+            bits += m - nb
+            if bits < -32:
+                raise CodecFailure(ERR_HUF, "huffman stream over-read")
+        return bytes(out)
 
 
 def decode_weights(data: bytes):

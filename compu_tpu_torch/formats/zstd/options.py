@@ -1,9 +1,11 @@
-"""zstd encoder options: the port's ``ZstdOptions``, after
-``compu_tpu/formats/zstd/options.py``.
+"""zstd options: the port's ``ZstdOptions`` and ``ZstdDecodeOptions``,
+after ``compu_tpu/formats/zstd/options.py``.
 
 The port always runs the LZ stage on the device, so it takes none of the
 reference's settings that pick a host parse (``level``, ``strategy``) and
-no ``device_lz`` switch.
+no ``device_lz`` switch. Its decoder likewise decodes the 4-stream literal
+sections on the device unless asked not to (the reference's default is
+the host).
 """
 
 from __future__ import annotations
@@ -34,3 +36,19 @@ class ZstdOptions:
     def __post_init__(self) -> None:
         if not 10 <= self.window_log <= 31:
             raise ValueError("window_log must be in 10..31")
+
+
+@dataclasses.dataclass(frozen=True)
+class ZstdDecodeOptions:
+    """Decoder options (reference: src/decoder/zstd.rs:22-74): the
+    window_log cap; ``device_literals`` decodes the 4-stream Huffman
+    literal sections on the device (kernel P2, kernels/zstd_lit_decode.py),
+    and ``False`` on the host (``HufTable.decode_stream``, whose over-read
+    limit is 32 bits where P2's route takes 64, as the reference's)."""
+
+    window_log_max: int = 31
+    device_literals: bool = True
+
+    def __post_init__(self) -> None:
+        if not 10 <= self.window_log_max <= 31:
+            raise ValueError("window_log_max must be in 10..31")

@@ -1,12 +1,13 @@
-"""zstd encoder backend: the port's copy of ``ZstdEncoder`` from
-``compu_tpu/formats/zstd/pipeline.py``, mapping the streaming Encoder
-contract onto the frame codec."""
+"""zstd backends: the port's copies of ``ZstdEncoder`` and
+``ZstdDecoder`` from ``compu_tpu/formats/zstd/pipeline.py``, mapping the
+streaming Encoder and Decoder contracts onto the frame codec."""
 
 from __future__ import annotations
 
-from ..base import EncoderBackend
+from ..base import DecoderBackend, EncoderBackend
+from .decode import ERRORS, ZstdFrameDecoder
 from .encode import ZstdStreamEncoder
-from .options import ZstdOptions
+from .options import ZstdDecodeOptions, ZstdOptions
 
 
 class ZstdEncoder(EncoderBackend):
@@ -40,3 +41,39 @@ class ZstdEncoder(EncoderBackend):
 
     def _do_reset(self) -> None:
         self._stream.reset()
+
+
+class ZstdDecoder(DecoderBackend):
+    """Frames through ``ZstdFrameDecoder``; with ``device_literals`` its
+    4-stream literal sections decode on ``device`` (CUDA by default)."""
+
+    name = "zstd"
+    ERRORS = ERRORS
+
+    def __init__(self, options: ZstdDecodeOptions | None = None, device=None) -> None:
+        self.options = options or ZstdDecodeOptions()
+        self.device = device
+        super().__init__()
+        self._frame = self._new_frame()
+
+    def _new_frame(self) -> ZstdFrameDecoder:
+        frame = ZstdFrameDecoder(window_log_max=self.options.window_log_max,
+                                 device_literals=self.options.device_literals,
+                                 device=self.device)
+        frame.sink_budget = self.pending_high_water
+        return frame
+
+    def _pump(self) -> None:
+        consumed, finished = self._frame.pump(self._staged, self._staged_pos)
+        if self._frame.sink:
+            self._pending.extend(self._frame.sink)
+            self._frame.sink = bytearray()
+        self._staged_pos = consumed
+        if finished:
+            self._finished = True
+
+    def _rebase_input(self, nbytes: int) -> None:
+        self._frame.pos -= nbytes
+
+    def _do_reset(self) -> None:
+        self._frame = self._new_frame()

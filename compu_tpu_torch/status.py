@@ -1,20 +1,69 @@
-"""Status model of the streaming encoder (the encode half).
+"""Status model of the streaming encoder and decoder.
 
-The port's copy of the encode types in ``compu_tpu/status.py``:
+The port's copy of ``compu_tpu/status.py``:
 
+- ``DecodeStatus {NeedInput, NeedOutput, Finished}``, and ``DecodeError``,
+  a typed error wrapping the backend's code;
+- ``Decode {input_remain, output_remain, status}``: the outcome of one
+  decode call, whose ``status`` is a ``DecodeStatus`` or a ``DecodeError``;
 - ``EncodeOp {Process, Flush, Finish}``: what the caller asks of the encoder;
 - ``EncodeStatus {Continue, NeedOutput, Finished, Error}``;
 - ``Encode {input_remain, output_remain, status}``: the outcome of one call.
 
 ``input_remain`` / ``output_remain`` are the byte counts left unused in the
 buffers passed to the call, so a caller can suspend at any chunk boundary
-and resume later. ``reset()`` re-arms the encoder for a new stream.
+and resume later. ``reset()`` re-arms the encoder or decoder for a new
+stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Union
+
+
+class DecodeStatus(enum.Enum):
+    """Result of a successful decode step."""
+
+    #: All input consumed; more input is required to make progress.
+    NeedInput = "need_input"
+    #: Output buffer has no more space (or undrained data remains internally).
+    NeedOutput = "need_output"
+    #: Stream fully decoded and trailer verified.
+    Finished = "finished"
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeError:
+    """Typed decode error wrapping the backend's code;
+    ``Decoder.describe_error`` maps it to a static message."""
+
+    code: int
+
+    @staticmethod
+    def no_error() -> "DecodeError":
+        """Placeholder error (code 0) whose description is the generic
+        message."""
+        return DecodeError(0)
+
+    def __str__(self) -> str:  # pragma: no cover - cosmetic
+        return f"DecodeError(code={self.code})"
+
+
+@dataclasses.dataclass(frozen=True)
+class Decode:
+    """Outcome of one decode call."""
+
+    #: Bytes of the provided input that were NOT consumed.
+    input_remain: int
+    #: Bytes of the provided output buffer that were NOT written.
+    output_remain: int
+    status: Union[DecodeStatus, DecodeError]
+
+    @property
+    def is_error(self) -> bool:
+        return isinstance(self.status, DecodeError)
 
 
 class EncodeOp(enum.Enum):

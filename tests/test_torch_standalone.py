@@ -43,6 +43,33 @@ def test_port_and_smoke_imports_stand_alone(tmp_path):
     assert "standalone-ok" in proc.stdout
 
 
+def test_port_decoder_runs_stand_alone(tmp_path):
+    """Decoding a zstd frame through the port's decoder, with its literal
+    sections on kernel P2's plain version, in a fresh interpreter: none of
+    the forbidden packages is loaded."""
+    code = (
+        "import sys\n"
+        "from compu_tpu_torch import decoder\n"
+        "from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface\n"
+        f"data = open({str(ROOT / 'tests' / 'data' / 'alice29.txt')!r}, 'rb').read()[:40000]\n"
+        "frame = ByteVec()\n"
+        "Interface.zstd(device='cpu').encode_vec_full(data, frame, EncodeOp.Finish)\n"
+        "dec = decoder.Interface.zstd(device='cpu')\n"
+        "out = ByteVec()\n"
+        "res = dec.decode_vec_full(frame.data(), out)\n"
+        "assert res.status is decoder.DecodeStatus.Finished and out.data() == data, res\n"
+        "assert 'compu_tpu_torch.kernels.zstd_lit_decode' in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('decode-standalone-ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "decode-standalone-ok" in proc.stdout
+
+
 def test_corpus_equals_bench(monkeypatch):
     """The port's corpus is bench.build_corpus's, byte for byte; the
     reference reads its text from the working directory, the copy from the
