@@ -79,7 +79,11 @@ JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 (with the ``bytes`` and ``ops`` it counts), ``bound_by``,
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
 ``launches_per_encode`` (per decode for P2), and ``library_ms`` null with
-the reason: no one PyTorch call computes any of the seven functions.
+the reason: no one PyTorch call computes any of the seven functions. P1's
+and P2's entries also carry ``cycles_per_step`` (kernel ms at the SM clock
+of the shared-memory chase, over the longest chain's steps),
+``sass_per_step`` (one step of the main loop in the built SASS, by pipe)
+and ``dynamic_smem_bytes``.
 Without a CUDA device it fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path,
@@ -238,11 +242,9 @@ def sass_counts(lib_path, symbol: str) -> collections.Counter:
                                  line)
         if not m:
             continue
-        op = m.group(1).split(".")[0]
-        if op in SASS_SKIP or op.startswith("U"):
-            continue
-        counts["fma" if op in SASS_FMA else "xu" if op in SASS_XU
-               else "mem" if op in SASS_MEM else "alu"] += 1
+        pipe = _pipe(m.group(1))
+        if pipe is not None:
+            counts[pipe] += 1
     if not found or not counts:
         raise AssertionError(f"no kernel {symbol} in the SASS of {lib_path.name}")
     return collections.Counter({k: v / found for k, v in counts.items()})
@@ -282,6 +284,73 @@ def match_candidate_cost(lib_path) -> dict:
                                                   "match_kernelILi16ELi4E", 64),
             "wcap32_depth16": _cost_per_candidate(lib_path, "match_kernelILi16ELi8E",
                                                   "match_kernelILi8ELi8E", 32)}
+
+
+def _pipe(op: str) -> str | None:
+    """The pipe of a SASS opcode (as :func:`sass_counts` sorts them), or
+    None for the control, special-register and uniform ones it leaves out."""
+    base = op.split(".")[0]
+    if base in SASS_SKIP or base.startswith("U"):
+        return None
+    return ("fma" if base in SASS_FMA else "xu" if base in SASS_XU
+            else "mem" if base in SASS_MEM else "alu")
+
+
+def sass_loops(lib_path, symbol: str) -> list[list[tuple]]:
+    """The loops of kernel ``symbol`` (its first function in the library's
+    ``cuobjdump -sass``): for each backward branch, the instructions
+    (address, opcode, operands) from its target up to it."""
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ins, labels, inside = [], {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            if ins:
+                break
+            inside = symbol in line
+            continue
+        if not inside:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(ins)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    at = {addr: k for k, (addr, _, _) in enumerate(ins)}
+    loops = []
+    for k, (_, op, rest) in enumerate(ins):
+        if op.split(".")[0] != "BRA":
+            continue
+        tgt = re.search(r"0x([0-9a-f]+)", rest)
+        lab = re.search(r"(\.L_x_\d+)", rest)
+        start = at.get(int(tgt.group(1), 16)) if tgt else labels.get(lab.group(1)) if lab else None
+        if start is not None and start <= k:
+            loops.append(ins[start:k + 1])
+    if not ins:
+        raise AssertionError(f"no kernel {symbol} in the SASS of {lib_path.name}")
+    return loops
+
+
+def sass_step_loop(lib_path, symbol: str, load: str, loads_per_step: int,
+                   steps: int) -> dict:
+    """One step of a chain kernel's main loop in the built library's SASS:
+    the loop of kernel ``symbol`` that holds ``loads_per_step * steps``
+    shared loads of opcode ``load`` (the table reads), i.e. ``steps`` steps
+    an iteration (of several, the smallest of those that read no device
+    memory: P2's path over staged rows); its instructions by pipe divided
+    by ``steps``, and the iteration's whole count."""
+    want = loads_per_step * steps
+    fits = [body for body in sass_loops(lib_path, symbol)
+            if sum(op == load for _, op, _ in body) == want]
+    if not fits:
+        raise AssertionError(f"no loop of {symbol} with {want} {load} in {lib_path.name}")
+    body = min(fits, key=lambda b: (any(op.startswith("LDG") for _, op, _ in b), len(b)))
+    counts = collections.Counter(_pipe(op) for _, op, _ in body)
+    return {"steps_per_iteration": steps, "iteration_instructions": len(body),
+            **{k: counts[k] / steps for k in ("alu", "fma", "xu", "mem")}}
 
 
 # Work of each kernel on one call: (bytes, ops) from the inputs, keywords
@@ -333,7 +402,7 @@ def scan_work(args, kw, outs):
     time is the steps times that latency (``smem_round_trip``) and not the
     INT32 rate's. Bytes: the codes and tables in, the pushes and final
     states out."""
-    ens = args[-1]
+    ens = args[5]
     steps = kw["nseq"] - 1 if bool((ens > 0).any()) else 0
     smem = smem_round_trip()
     return _nbytes(*args, *outs), steps, {
@@ -621,6 +690,41 @@ def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     return res
 
 
+def _lanes_smem(args, kw) -> int:
+    """P2's dynamic shared memory: a section's rows (lanes x scap bytes)
+    when they fit in 196 KiB (csrc/huf_lit_decode.cu), else none."""
+    rows = args[0].shape[0] // args[5].shape[0] * args[0].shape[1]
+    return rows if rows <= 196 << 10 else 0
+
+
+# The chain kernels: per kernel, the SASS symbol of its kernel, the opcode
+# of its table reads and their number a step, its steps an iteration of
+# the main loop and the dynamic shared memory a block asks for, both for
+# the inputs (args, kw). P1 walks 8 steps an iteration; P2 64 // max_bits
+# (16 at most; its max_bits is args[5]).
+CHAIN_KERNELS = {
+    "fse_seq_scan": ("fse_seq_scan_kernel", "LDS.U16", 1, lambda args, kw: 8,
+                     lambda args, kw: _build.lib().compu_fse_seq_scan_smem()),
+    "huf_decode_lanes": ("huf_decode_lanes_kernel", "LDS.U8", 2,
+                         lambda args, kw: min(64 // max(int(args[5].max()), 1), 16),
+                         _lanes_smem),
+}
+
+
+def chain_report(name: str, res: dict, args, kw) -> dict:
+    """What a chain kernel's time is made of: its cycles a step (kernel ms
+    x the SM clock of this run's shared-memory chase / the longest chain's
+    steps), one step of its main loop in the SASS by pipe, and the dynamic
+    shared memory it asks for."""
+    symbol, load, loads, steps, smem = CHAIN_KERNELS[name]
+    chase = smem_round_trip()
+    per = sass_step_loop(_build.build(), symbol, load, loads, steps(args, kw))
+    out = {"cycles_per_step": res["ms"] * 1e6 / res["ops"] * chase["cycles"] / chase["ns"],
+           "sass_per_step": per, "dynamic_smem_bytes": smem(args, kw)}
+    log(f"sass {name} per step " + json.dumps(per))
+    return out
+
+
 def check_kernels(inputs: dict, names) -> list[dict]:
     """Each kernel of ``names`` against its plain twin on the card, at each
     of its paths' shapes (``inputs[kernel, path]``). A kernel held at more
@@ -641,6 +745,8 @@ def check_kernels(inputs: dict, names) -> list[dict]:
             entry["sass_per_candidate"] = dict(LCP_COST)
         if name == "match_candidates":
             entry["sass_per_candidate"] = dict(MATCH_COST)
+        if name in CHAIN_KERNELS:
+            entry.update(chain_report(name, first, *inputs[name, first["path"]]))
         if others:
             entry["other_paths"] = others
         report.append(entry)
@@ -942,16 +1048,11 @@ def zstd_decode(frame: bytes, device, device_literals: bool = True) -> bytes:
     return vec.data()
 
 
-def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
-    """The zstd_device frame decoded on the card three times, timed (P2 is
-    built before; the first decode keeps its largest literal section's P2
-    arguments for the kernel report); each must give the corpus. Then the
-    first 2 MiB's CPU frame decodes on the CPU (P2's plain version) to the
-    bytes the card gives, P2 is held to its twin on the kept section, and
-    last the host literal route gives the corpus, so that nothing else runs
-    on the host while a time is taken. Returns the measurements and P2's
-    kernel report entry."""
-    dev = torch.device("cuda")
+def record_lane_inputs(fn):
+    """Run ``fn()`` with P2's calls recorded; returns its result and what
+    was kept: the calls (``sections``), the steps of their longest lanes
+    (``steps``), and the arguments of the call with the most steps (the
+    largest literal section: ``args``, ``max_steps``)."""
     kept = {"sections": 0, "steps": 0}
     lanes = zstd_lit_decode.huf_decode_lanes
 
@@ -962,6 +1063,24 @@ def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
             kept.update(max_steps=args[-1], args=tuple(a.clone() for a in args[:-1]))
         return lanes(*args)
 
+    zstd_lit_decode.huf_decode_lanes = recording
+    try:
+        return fn(), kept
+    finally:
+        zstd_lit_decode.huf_decode_lanes = lanes
+
+
+def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
+    """The zstd_device frame decoded on the card three times, timed (P2 is
+    built before; the first decode keeps its largest literal section's P2
+    arguments for the kernel report); each must give the corpus. Then the
+    first 2 MiB's CPU frame decodes on the CPU (P2's plain version) to the
+    bytes the card gives, P2 is held to its twin on the kept section, and
+    last the host literal route gives the corpus, so that nothing else runs
+    on the host while a time is taken. Returns the measurements and P2's
+    kernel report entry."""
+    dev = torch.device("cuda")
+
     def timed_decode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -969,14 +1088,10 @@ def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
         return out, time.perf_counter() - t0
 
     def decodes():
-        zstd_lit_decode.huf_decode_lanes = recording
-        try:
-            runs = [timed_decode()]
-        finally:
-            zstd_lit_decode.huf_decode_lanes = lanes
-        return runs + [timed_decode() for _ in range(2)]
+        first, kept = record_lane_inputs(timed_decode)
+        return [first] + [timed_decode() for _ in range(2)], kept
 
-    runs, launches = run_path("zstd_decode", decodes)
+    (runs, kept), launches = run_path("zstd_decode", decodes)
     if any(out != corpus for out, _ in runs):
         raise AssertionError("a decode of the zstd_device frame differs from the corpus")
     times = [t for _, t in runs]

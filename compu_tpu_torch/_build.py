@@ -44,7 +44,8 @@ _SIGNATURES = {
     "compu_emit_pack": (_P, _P, _P, _LL, _I, _P),
     "compu_match_candidates": (_P, _P, _P, _I, _P, _P, _LL, _LL, _I, _I, _P),
     "compu_adler_tiles": (_P, _P, _LL, _P),
-    "compu_fse_seq_scan": (_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "compu_fse_seq_scan": (_P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "compu_fse_seq_scan_smem": (),
     "compu_huf_decode_lanes": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P),
 }
 

@@ -97,7 +97,11 @@ def huf_decode_lanes_torch(streams, bits0, counts, symbol, nbits, max_bits,
 def huf_decode_lanes_cuda(streams, bits0, counts, symbol, nbits, max_bits,
                           max_steps: int):
     """The CUDA kernel (``csrc/huf_lit_decode.cu``); same contract as
-    :func:`huf_decode_lanes_torch`, for ``max_bits`` in 0..11."""
+    :func:`huf_decode_lanes_torch`, for ``max_bits`` in 0..11. The kernel
+    reads each row as aligned 32-bit words: a row whose length is not a
+    multiple of 4 (or a misaligned tensor) is copied into rows padded with
+    zero bytes first, which decode the same (``lane_inputs`` makes rows
+    that need no copy)."""
     from .. import _build
 
     _build.require(streams, "streams", ndim=2, dtype=torch.uint8)
@@ -110,6 +114,11 @@ def huf_decode_lanes_cuda(streams, bits0, counts, symbol, nbits, max_bits,
         if t.device != streams.device:
             raise ValueError(f"{name} must be on {streams.device}")
     L, S = _check_lanes(streams, bits0, counts, symbol, nbits, max_bits, max_steps)
+    scap = streams.shape[1]
+    if scap % 4 or streams.data_ptr() % 4:
+        padded = torch.zeros(L, -(-scap // 4) * 4, dtype=torch.uint8, device=streams.device)
+        padded[:, :scap] = streams
+        streams = padded
     out = torch.empty(L, max_steps, dtype=torch.uint8, device=streams.device)
     ok = torch.empty(L, dtype=torch.bool, device=streams.device)
     host_ok = torch.empty_like(ok)
@@ -137,13 +146,14 @@ def huf_decode_lanes(streams, bits0, counts, symbol, nbits, max_bits, max_steps:
 def lane_inputs(bodies: list[bytes], counts: list[int], symbol: np.ndarray,
                 nbits: np.ndarray, max_bits: int, device):
     """One section's lanes as tensors on ``device``: ``streams`` (L, scap)
-    with scap = max(8, longest body + 3), ``bits0``, ``counts``, ``symbol``
+    with scap = max(8, longest body + 3) rounded up to a multiple of 4 (the
+    kernel reads rows as 32-bit words), ``bits0``, ``counts``, ``symbol``
     and ``nbits`` (1, 2048), ``max_bits`` (1,). A body without a sentinel
     (empty, or ending in a zero byte) gets 0 bits and 0 symbols. Also
     returns the per-lane sentinel flags, and ``max_steps``, the largest
     count."""
     L = len(bodies)
-    scap = max(8, max(len(b) for b in bodies) + 3)
+    scap = -(-max(8, max(len(b) for b in bodies) + 3) // 4) * 4
     streams = np.zeros((L, scap), np.uint8)
     ints = np.zeros(2 * L + 1, np.int32)  # bits0, counts, max_bits
     sentinel = [len(b) > 0 and b[-1] != 0 for b in bodies]

@@ -39,7 +39,7 @@ def _chan_arrays(table):
     return st, dnb, df, np.int32(table.table_log), np.int32(1)
 
 
-def _check_scan(codes, inits, st, dnb, df, ens, nseq: int) -> int:
+def _check_scan(codes, inits, st, dnb, df, ens, logs, nseq: int) -> int:
     """Validate the scan's arguments; returns P."""
     if codes.dim() != 2 or codes.shape[0] != 3:
         raise ValueError(f"codes must be (3, P), got {tuple(codes.shape)}")
@@ -48,22 +48,23 @@ def _check_scan(codes, inits, st, dnb, df, ens, nseq: int) -> int:
         raise ValueError(f"nseq must be in [1, {P}], got {nseq}")
     for name, t, shape in (("inits", inits, (3,)), ("st", st, (3, STBL)),
                            ("dnb", dnb, (3, NSYM)), ("df", df, (3, NSYM)),
-                           ("ens", ens, (3,))):
+                           ("ens", ens, (3,)), ("logs", logs, (3,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     return P
 
 
-def fse_seq_scan_torch(codes, inits, st, dnb, df, ens, nseq: int):
+def fse_seq_scan_torch(codes, inits, st, dnb, df, ens, logs, nseq: int):
     """Plain version: the three channels' state chains, one step a loop
     iteration. ``codes`` (3, P) int32 symbols in sequence order (rows LL,
     ML, OF), ``inits`` (3,) the states after sequence nseq-1, ``st`` (3,
     512), ``dnb``/``df`` (3, 64) the tables, ``ens`` (3,) 1 where a channel
-    has a table. Step j codes sequence nseq-2-j. Returns ``push_v`` and
+    has a table, ``logs`` (3,) the table logs (the kernel's table layout;
+    unused here). Step j codes sequence nseq-2-j. Returns ``push_v`` and
     ``push_b`` (P, 3) int32, the state pushed at each step and its bit
     count (0 for a channel without a table and for rows j >= nseq-1, which
     hold the final state), and the final states (3,) int32."""
-    P = _check_scan(codes, inits, st, dnb, df, ens, nseq)
+    P = _check_scan(codes, inits, st, dnb, df, ens, logs, nseq)
     dev = codes.device
     steps = nseq - 1
     push_v = inits.to(torch.int64).repeat(P, 1)
@@ -92,38 +93,77 @@ def fse_seq_scan_torch(codes, inits, st, dnb, df, ens, nseq: int):
     return push_v.to(torch.int32), push_b.to(torch.int32), push_v[-1].to(torch.int32)
 
 
-def fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, nseq: int):
-    """The CUDA kernel (``csrc/fse_seq_scan.cu``); same contract as
-    :func:`fse_seq_scan_torch`, for symbols below 64."""
+def fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, logs, nseq: int):
+    """The CUDA kernel (``csrc/fse_seq_scan.cu``); the contract of
+    :func:`fse_seq_scan_torch` under the kernel's precondition, which every
+    section the encoder writes meets: each channel with a table starts in
+    a state of [2^log, 2^(log+1)) (``init_state`` gives one) and codes only
+    symbols that its table counts (the encoder builds each table from the
+    symbols it codes). The kernel's per-(symbol, state) transition table
+    covers just those; :func:`fse_transition_table_torch` is its model."""
     from .. import _build
 
     _build.require(codes, "codes", ndim=2)
     for name, t, ndim in (("inits", inits, 1), ("st", st, 2), ("dnb", dnb, 2),
-                          ("df", df, 2), ("ens", ens, 1)):
+                          ("df", df, 2), ("ens", ens, 1), ("logs", logs, 1)):
         _build.require(t, name, ndim=ndim)
         if t.device != codes.device:
             raise ValueError(f"{name} must be on {codes.device}")
-    P = _check_scan(codes, inits, st, dnb, df, ens, nseq)
+    P = _check_scan(codes, inits, st, dnb, df, ens, logs, nseq)
     push_v = torch.empty(P, 3, dtype=torch.int32, device=codes.device)
     push_b = torch.empty_like(push_v)
     final = torch.empty(3, dtype=torch.int32, device=codes.device)
     err = _build.lib().compu_fse_seq_scan(
         codes.data_ptr(), P, nseq, inits.data_ptr(), st.data_ptr(), dnb.data_ptr(),
-        df.data_ptr(), ens.data_ptr(), push_v.data_ptr(), push_b.data_ptr(),
-        final.data_ptr(), _build.stream_handle(codes))
+        df.data_ptr(), ens.data_ptr(), logs.data_ptr(), push_v.data_ptr(),
+        push_b.data_ptr(), final.data_ptr(), _build.stream_handle(codes))
     _build.check_launch(err, "fse_seq_scan")
     return push_v, push_b, final
 
 
-def fse_seq_scan(codes, inits, st, dnb, df, ens, nseq: int):
+def fse_seq_scan(codes, inits, st, dnb, df, ens, logs, nseq: int):
     """The state chains: the kernel on CUDA, the plain version on the
     CPU."""
     kind = codes.device.type
     if kind == "cuda":
-        return fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, nseq)
+        return fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, logs, nseq)
     if kind == "cpu":
-        return fse_seq_scan_torch(codes, inits, st, dnb, df, ens, nseq)
+        return fse_seq_scan_torch(codes, inits, st, dnb, df, ens, logs, nseq)
     raise ValueError(f"no fse_seq_scan for device {codes.device}")
+
+
+#: Symbols each channel's rows of the kernel's transition table cover
+#: (MAX_{LL,ML,OF}_SYMBOL + 1), as ``csrc/fse_seq_scan.cu``'s kSyms*.
+TABLE_SYMS = (36, 53, 32)
+
+
+def fse_transition_table_torch(st, dnb, df, logs, ens):
+    """The kernel's transition table as its prologue builds it, for the
+    tests: per enabled channel c, symbol s < TABLE_SYMS[c] and state offset
+    u < 2^log, the uint16 entry ``2 * (next - 2^log) | nb << 12`` of the
+    step from state 2^log + u coding s (the twin's nb, clamp and
+    max(nb, 0); out-of-range ``next`` masked into the row). Returns the
+    flat table as int32 holding the uint16 words (the channels' rows one
+    after another, a disabled channel none) and each channel's first
+    entry."""
+    rows, base, at = [], [], 0
+    for c in range(3):
+        base.append(at)
+        if int(ens[c]) <= 0:
+            continue
+        lg = min(max(int(logs[c]), 0), 9)
+        size = 1 << lg
+        n = TABLE_SYMS[c] << lg
+        e = torch.arange(n, dtype=torch.int64)
+        s = e >> lg
+        state = size + (e & (size - 1))
+        nb = (state + dnb[c].to(torch.int64)[s]) >> 16
+        idx = ((state >> nb.clamp(min=0)) + df[c].to(torch.int64)[s]).clamp(0, STBL - 1)
+        nxt = st[c].to(torch.int64)[idx]
+        rows.append((((nxt - size) & (size - 1)) << 1) | ((nb & 15) << 12))
+        at += n
+    flat = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64)
+    return flat.to(torch.int32), base
 
 
 def _pack(push_v, push_b, final, xvals, xbits, logs, ens, nseq: int, cap: int):
@@ -203,7 +243,7 @@ def encode_sequences_device(ll_codes, ml_codes, of_codes, ll_x, ml_x, of_x,
     for row, (x, b) in enumerate(((ll_x, ll_xb), (ml_x, ml_xb), (of_x, of_xb))):
         xvals[row, :n] = x
         xbits[row, :n] = b
-    push_v, push_b, final = fse_seq_scan(codes, inits, st, dnb, df, ens, n)
+    push_v, push_b, final = fse_seq_scan(codes, inits, st, dnb, df, ens, logs, n)
     # worst-case bits: 6 fields x (25 bits) per seq + head/tail
     cap = (P * 6 * 32) // 8 + 64
     out, total_bits = _pack(push_v, push_b, final, torch.from_numpy(xvals).to(device),

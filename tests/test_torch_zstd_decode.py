@@ -622,7 +622,7 @@ def _gpu_lanes(lanes: int, max_bits: int, kind: str, sections: int = 1):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lanes", [1, 4, 512])
 @pytest.mark.parametrize("max_bits", range(1, 12))
-@pytest.mark.parametrize("kind", ["unequal", "over32", "over64"])
+@pytest.mark.parametrize("kind", ["unequal", "over32", "over64", "one"])
 def test_p2_kernel_equals_plain_gpu(cuda, lanes, max_bits, kind):
     args, steps = _gpu_lanes(lanes, max_bits, kind)
     want = p2.huf_decode_lanes_torch(*args, steps)
@@ -639,6 +639,92 @@ def test_p2_kernel_many_sections_gpu(cuda):
         args, steps = _gpu_lanes(lanes, 11 if sections == 1 else 7, "section", sections)
         want = p2.huf_decode_lanes_torch(*args, steps)
         got = p2.huf_decode_lanes_cuda(*(a.to(cuda) for a in args), steps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1, 2, 3])
+def test_p2_kernel_odd_max_steps_gpu(cuda, extra):
+    """``max_steps`` not a multiple of 4 (1,501 and more): output rows
+    that do not start on a 4-byte boundary."""
+    args, steps = _gpu_lanes(4, 9, "unequal")
+    assert steps == 1501
+    want = p2.huf_decode_lanes_torch(*args, steps + extra)
+    got = p2.huf_decode_lanes_cuda(*(a.to(cuda) for a in args), steps + extra)
+    torch.cuda.synchronize()
+    assert got[0].shape == (4, steps + extra)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_p2_kernel_one_symbol_lane_gpu(cuda):
+    """A lane of one symbol (a one-byte stream), beside longer lanes."""
+    bodies, counts, table, _ = _lane_case(11, "unequal", seed=3)
+    enc, syms, _ = _encoder_for(11, 3)
+    bodies[1], counts[1] = enc.encode_stream(bytes([int(syms[0])])), 1
+    args, sentinel, steps = p2.lane_inputs(bodies, counts, table.symbol, table.nbits,
+                                           table.max_bits, "cpu")
+    assert all(sentinel) and len(bodies[1]) == 1
+    want = p2.huf_decode_lanes_torch(*args, steps)
+    got = p2.huf_decode_lanes_cuda(*(a.to(cuda) for a in args), steps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert want[0][1, 0].item() == int(syms[0]) and bool(want[1].all())
+
+
+@pytest.mark.gpu
+def test_p2_kernel_largest_section_gpu(cuda):
+    """The largest legal section: four streams of about 32 KiB each, 128
+    KiB together (a compressed block's largest content), at max_bits 11."""
+    rng = np.random.default_rng(3)
+    freqs = (rng.pareto(0.9, 256) * 10).astype(np.int64) + 1
+    enc = huff.HufEncoder(freqs)
+    assert enc.max_bits == 11
+    lits = rng.choice(256, 180_000, p=freqs / freqs.sum()).astype(np.uint8).tobytes()
+    per = 45_000
+    chunks = [lits[i * per:(i + 1) * per] for i in range(4)]
+    bodies = [enc.encode_stream(c) for c in chunks]
+    while sum(map(len, bodies)) > 128 << 10:
+        chunks = [c[:-500] for c in chunks]
+        bodies = [enc.encode_stream(c) for c in chunks]
+    assert sum(map(len, bodies)) > 127 << 10
+    table = huff.HufTable(enc.weights)
+    args, sentinel, steps = p2.lane_inputs(bodies, [len(c) for c in chunks], table.symbol,
+                                           table.nbits, table.max_bits, "cpu")
+    want = p2.huf_decode_lanes_torch(*args, steps)
+    got = p2.huf_decode_lanes_cuda(*(a.to(cuda) for a in args), steps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert [want[0][i, :len(c)].numpy().tobytes() for i, c in enumerate(chunks)] == chunks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(6))
+def test_p2_kernel_any_input_gpu(cuda, seed):
+    """Inputs no Huffman section gives: random stream bytes, counters and
+    tables, codes longer than max_bits in odd seeds (the kernel's path for
+    such tables), rows whose length is not a multiple of 4, and the same
+    rows in a misaligned tensor (both copied into padded rows)."""
+    rng = np.random.default_rng(seed)
+    L, S, scap = 6, 2, int(rng.integers(4, 30)) * 2 + 1
+    m = rng.integers(0, 12, S).astype(np.int32)
+    longest = [30 if seed % 2 else int(x) + 1 for x in m]
+    args = (torch.from_numpy(rng.integers(0, 256, (L, scap)).astype(np.uint8)),
+            torch.from_numpy(rng.integers(-80, 8 * scap + 40, L).astype(np.int32)),
+            torch.from_numpy(rng.integers(-2, 60, L).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 256, (S, 2048)).astype(np.uint8)),
+            torch.from_numpy(np.stack([rng.integers(0, h, 2048) for h in longest])
+                             .astype(np.uint8)),
+            torch.from_numpy(m))
+    want = p2.huf_decode_lanes_torch(*args, 50)
+    dev = [a.to(cuda) for a in args]
+    buf = torch.zeros(L * scap + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(L, scap)
+    shifted.copy_(dev[0])
+    assert shifted.data_ptr() % 4 and shifted.is_contiguous()
+    for streams in (dev[0], shifted):
+        got = p2.huf_decode_lanes_cuda(streams, *dev[1:], 50)
         torch.cuda.synchronize()
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 

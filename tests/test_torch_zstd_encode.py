@@ -326,12 +326,12 @@ def _scan_case(n: int, rle: bool):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 2, 17, 7000])
+@pytest.mark.parametrize("n", [1, 2, 17, 7000, 14884])
 @pytest.mark.parametrize("rle", [False, True])
 def test_fse_seq_scan_kernel_matches_plain_gpu(cuda, n, rle):
     (codes, inits, st, dnb, df, logs, ens), seqs = _scan_case(n, rle)
-    got = zstd_seq.fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, n)
-    want = zstd_seq.fse_seq_scan_torch(codes, inits, st, dnb, df, ens, n)
+    got = zstd_seq.fse_seq_scan_cuda(codes, inits, st, dnb, df, ens, logs, n)
+    want = zstd_seq.fse_seq_scan_torch(codes, inits, st, dnb, df, ens, logs, n)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     if n > 1:
