@@ -1,23 +1,40 @@
 #!/usr/bin/env python3
-"""P1 and P2 of this tree beside their design of commit da778ed, on one card.
+"""Redesigned kernels of this tree beside their earlier design, on one card.
 
-    python3 ab_chains.py PARENT_DIR
+    python3 ab_chains.py chains PARENT_DIR        # P1 and P2; PARENT_DIR: commit da778ed
+    python3 ab_chains.py parse_cover PARENT_DIR   # B2; PARENT_DIR: commit f8599b4
 
-``PARENT_DIR`` holds a checkout of commit da778ed (``git archive da778ed``
-unpacked), whose ``compu_tpu_torch/csrc/fse_seq_scan.cu`` and
-``huf_lit_decode.cu`` are the state-chain and literal-decode kernels
-before their redesign. Both are built into a library of their own and
-called through their C interface of that commit. On the inputs of
-``chip_smoke.py``'s report (P1: the first MiB's largest sequences section;
-P2: the largest literal section of the 16 MB corpus's zstd_device frame)
-each design is held to the plain twin exactly and timed with
-``chip_smoke.device_ms`` in turns, parent, this tree, this tree, parent,
-with the cycles a step at the SM clock of a shared-memory chase measured
-in the same run. Then the loops of each kernel in the SASS (``cuobjdump``)
-that read shared memory are printed first: instructions by pipe, and
-the opcode sequence in ``ab_chains_sass.txt`` beside the built libraries
-(``compu_tpu_torch/_build/``). The last line is one JSON object with the
-times.
+``PARENT_DIR`` holds a checkout of the commit named (``git archive``
+unpacked). The earlier kernel is built from it into a library of its own
+and called through its C interface of that commit.
+
+``chains``: ``fse_seq_scan.cu`` and ``huf_lit_decode.cu`` of da778ed are
+the state-chain and literal-decode kernels before their redesign. On the
+inputs of ``chip_smoke.py``'s report (P1: the first MiB's largest
+sequences section; P2: the largest literal section of the 16 MB corpus's
+zstd_device frame) each design is held to the plain twin exactly and
+timed with ``chip_smoke.device_ms`` in turns, parent, this tree, this
+tree, parent, with the cycles a step at the SM clock of a shared-memory
+chase measured in the same run. The loops of each kernel in the SASS
+(``cuobjdump``) that read shared memory are printed first: instructions by
+pipe, and the opcode sequence in ``ab_chains_sass.txt`` beside the built
+libraries (``compu_tpu_torch/_build/``).
+
+``parse_cover``: ``parse_cover.cu`` of f8599b4 is B2 before its redesign,
+a kernel from the (S, 128) int32 jump targets to an int32 mask, one lane
+of a warp walking each segment's orbit; that commit's whole function is
+``jump_targets``, the kernel and ``> 0``. On the step arrays of
+``chip_smoke.py``'s report (the gzip_lex path's first 16 blocks, 4,194,304
+positions; the zstd path's first 1 MiB tokenizer call, 1,048,576) both
+designs are held to the plain version exactly and timed in turns, empty
+launch, copy floor, parent, this tree, this tree, parent, copy floor,
+empty launch, beside B2's bound (``chip_smoke.parse_work``). The copy
+floor (``smoke_csrc/copy_floor.cu``) moves B2's bytes, the steps in and a
+byte a position out, and does no work; the empty launch is its grid with
+nothing to do. Both kernels' loops that read shared memory go to
+``ab_parse_cover_sass.txt``.
+
+The last line is one JSON object with the times.
 """
 
 from __future__ import annotations
@@ -28,11 +45,12 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from compu_tpu_torch import _build
-from compu_tpu_torch.kernels import zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import parse_cover, zstd_lit_decode, zstd_seq
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {
@@ -112,12 +130,7 @@ def dump_loops(label: str, lib_path, symbol: str, out) -> None:
             out.write(f"  {addr:05x} {op}{rest.split(';')[0]}\n")
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the comparison needs one GPU")
-    if len(sys.argv) != 2:
-        raise SystemExit(f"usage: {sys.argv[0]} PARENT_DIR")
-    parent = pathlib.Path(sys.argv[1]).resolve()
+def chains_main(parent: pathlib.Path) -> None:
     lib_parent, p1_parent, p2_parent = parent_kernels(parent)
     lib_tree = _build.build()
     with open(_build.BUILD_DIR / "ab_chains_sass.txt", "w") as fh:
@@ -140,6 +153,80 @@ def main() -> None:
                         zstd_lit_decode.huf_decode_lanes_torch, kept["args"], lane_kw, steps2,
                         ghz)]
     print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "kernels": res}))
+
+
+def parse_cover_main(parent: pathlib.Path) -> None:
+    srcs = [parent / "compu_tpu_torch" / "csrc" / "parse_cover.cu"]
+    lib_parent = _build.build(srcs, "libcompu_parent_b2")
+    walk = ctypes.CDLL(str(lib_parent)).compu_parse_cover
+    walk.argtypes, walk.restype = [_P, _P, _LL, _P], ctypes.c_int
+    smoke = ctypes.CDLL(str(_build.build(cs.SMOKE_SOURCES, "libcompu_smoke")))
+    floor, empty = smoke.compu_copy_floor, smoke.compu_empty_launch
+    floor.argtypes, floor.restype = [_P, _P, _LL, _P], ctypes.c_int
+    empty.argtypes, empty.restype = [_LL, _P], ctypes.c_int
+
+    def parent_design(step):
+        nl = parse_cover.jump_targets(step)
+        mask = torch.empty_like(nl)
+        if walk(nl.data_ptr(), mask.data_ptr(), nl.shape[0], _build.stream_handle(nl)):
+            raise RuntimeError("the parent's parse_cover failed to launch")
+        return mask.reshape(-1) > 0
+
+    def copy_floor(step):
+        out = torch.empty(step.shape[0], dtype=torch.uint8, device=step.device)
+        if floor(step.data_ptr(), out.data_ptr(), step.shape[0] // 128,
+                 _build.stream_handle(step)):
+            raise RuntimeError("compu_copy_floor failed to launch")
+        return out
+
+    def empty_launch(step):
+        if empty(step.shape[0] // 128, _build.stream_handle(step)):
+            raise RuntimeError("compu_empty_launch failed to launch")
+
+    with open(_build.BUILD_DIR / "ab_parse_cover_sass.txt", "w") as fh:
+        for label, lib in (("parent", lib_parent), ("tree", _build.build())):
+            dump_loops(label, lib, "parse_cover_kernel", fh)
+    corpus = cs.build_corpus(cs.CORPUS_BYTES)
+    blocks, lens = cs.split_blocks(corpus)
+    zstd_call = torch.from_numpy(np.frombuffer(corpus[:cs.ZSTD_SPAN], np.uint8).copy()[None]).cuda()
+    inputs = cs.kernel_inputs(torch.from_numpy(blocks[:16]).cuda(),
+                              torch.from_numpy(lens[:16]).cuda(),
+                              torch.zeros(0, dtype=torch.uint8), zstd_call, None)
+    res = []
+    for path in ("gzip_lex", "zstd_device"):
+        (step,), _ = inputs["parse_cover", path]
+        want = parse_cover.parse_cover_steps_torch(step)
+        for fn in (parent_design, parse_cover.parse_cover_cuda):
+            got = fn(step)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"parse_cover ({path}): a design differs from the plain one")
+        nbytes, ops = cs.parse_work((step,), {}, want)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S, ops / cs.INT32_OPS_PER_S) * 1e3
+        times = {"empty_launch": [], "copy_floor": [], "parent": [], "tree": []}
+        for label, fn in (("empty_launch", empty_launch), ("copy_floor", copy_floor),
+                          ("parent", parent_design), ("tree", parse_cover.parse_cover_cuda),
+                          ("tree", parse_cover.parse_cover_cuda), ("parent", parent_design),
+                          ("copy_floor", copy_floor), ("empty_launch", empty_launch)):
+            times[label].append(cs.device_ms(fn, (step,), {}, k=50))
+        entry = {"name": "parse_cover", "path": path, "positions": step.numel(),
+                 "bytes": nbytes, "ops": ops, "bound_ms": bound,
+                 **{f"{k}_ms": v for k, v in times.items()},
+                 **{f"{k}_share_of_bound": [bound / t for t in v] for k, v in times.items()}}
+        cs.log("ab " + json.dumps(entry))
+        res.append(entry)
+    print(json.dumps({"kernels": res}))
+
+
+MODES = {"chains": chains_main, "parse_cover": parse_cover_main}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the comparison needs one GPU")
+    if len(sys.argv) != 3 or sys.argv[1] not in MODES:
+        raise SystemExit(f"usage: {sys.argv[0]} {{{','.join(MODES)}}} PARENT_DIR")
+    MODES[sys.argv[1]](pathlib.Path(sys.argv[2]).resolve())
 
 
 if __name__ == "__main__":

@@ -37,7 +37,9 @@ failure:
    the adler tiles over the whole corpus in one launch, as adler_device
    makes it; P1 on the largest sequences section of the first MiB's zstd
    encode; P2, after phase 6, on the largest literal section of the
-   zstd_device frame), exactly, and time both with CUDA events: k back-to-back
+   zstd_device frame; B2 as the whole function, from the path's int64
+   step array to the bool cover, against the jump targets, the plain cover
+   and ``> 0``), exactly, and time both with CUDA events: k back-to-back
    launches between one pair of events, divided by k, the median of 5 such
    runs (see ``device_ms``; a plain twin whose check call takes 0.1 s or
    more, P1's and P2's, is timed by that call on the host clock, as
@@ -152,7 +154,7 @@ from compu_tpu_torch.kernels.match_candidates import (
     match_candidates_cuda,
     match_candidates_torch,
 )
-from compu_tpu_torch.kernels.parse_cover import jump_targets, parse_cover_cuda, parse_cover_torch
+from compu_tpu_torch.kernels.parse_cover import parse_cover_cuda, parse_cover_steps_torch
 from compu_tpu_torch.kernels.zstd_lit_decode import huf_decode_lanes_cuda, huf_decode_lanes_torch
 from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_torch
 from compu_tpu_torch.ops.xxhash import xxh64
@@ -378,9 +380,11 @@ def lcp_work(args, kw, outs):
 
 
 def parse_work(args, kw, outs):
-    """3 ops (load, compare, store) per position the walk visits."""
-    (nl,) = args
-    return _nbytes(nl, outs), 3 * int((outs != 0).sum())
+    """The whole function from the int64 steps: 3 ops (clamp, add, min) a
+    position for its jump target, and 3 (load, compare, store) a position
+    the orbit visits. Bytes: the steps in, the bool mask out."""
+    (step,) = args
+    return _nbytes(step, outs), 3 * step.numel() + 3 * int(outs.sum())
 
 
 def emit_work(args, kw, outs):
@@ -525,10 +529,12 @@ KERNELS = {
                              "compu_tpu_torch/csrc/lcp_candidates.cu",
                              "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex", "zstd_device"),
                              lcp_work),
-    "parse_cover": Kernel(parse_cover_cuda, parse_cover_torch,
+    "parse_cover": Kernel(parse_cover_cuda, parse_cover_steps_torch,
                           "compu_tpu_torch/csrc/parse_cover.cu",
                           "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex", "zstd_device"),
-                          parse_work),
+                          parse_work,
+                          replaces_note="with the jump targets and the > 0 around it: the whole "
+                                        "of parse_cover_pallas (parse_pallas.py:64)"),
     "emit_pack": Kernel(emit_pack_cuda, emit_pack_torch,
                         "compu_tpu_torch/csrc/emit_pack.cu",
                         "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",), emit_work),
@@ -588,13 +594,12 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
     step, *_ = _post_match(blocks, ns, ps, bl.reshape(B, -1).to(torch.int64),
                            bd.reshape(B, -1).to(torch.int64), wcap=LADDER["wcap"],
                            stride=LADDER["stride"])
-    nl = jump_targets(step.reshape(-1))
     is_tok, best_len, best_dist = match_and_parse_batch(blocks, ns, **LADDER)
     tok, lf, df, xl, xd = _tok_hist_from_match(blocks, ns, is_tok, best_len, best_dist)
     bytep, shifted, _, _ = _pack_inputs(tok, _build_tables(lf, df, xl, xd, ns), N)
     inputs = {
         ("lcp_candidates", "gzip_lex"): ((words, ps32), lcp_kw),
-        ("parse_cover", "gzip_lex"): ((nl,), {}),
+        ("parse_cover", "gzip_lex"): ((step.reshape(-1),), {}),
         ("emit_pack", "gzip_lex"): ((bytep, shifted), {}),
         ("adler_tiles", "adler_device"): ((flat,), {}),
         ("fse_seq_scan", "zstd_device"): scan_args,
@@ -609,7 +614,7 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
                             zbl.reshape(1, -1).to(torch.int64),
                             zbd.reshape(1, -1).to(torch.int64), wcap=32)
     inputs["lcp_candidates", "zstd_device"] = ((zwords, zps32), dict(ZSTD_LCP))
-    inputs["parse_cover", "zstd_device"] = ((jump_targets(zstep.reshape(-1)),), {})
+    inputs["parse_cover", "zstd_device"] = ((zstep.reshape(-1),), {})
     for path, cfg in HASH_PATHS.items():
         hs, hps, *sw = _sort_stage(blocks, ns, wcap=cfg["wcap"])
         hwords = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in sw]))

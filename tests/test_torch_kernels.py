@@ -28,6 +28,7 @@ from compu_tpu_torch.kernels.lcp_match import (
 from compu_tpu_torch.kernels.parse_cover import (
     jump_targets,
     parse_cover_cuda,
+    parse_cover_steps_torch,
     parse_cover_torch,
 )
 
@@ -154,7 +155,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lcp_candidates_cuda(torch.zeros(2, 256, dtype=torch.int32), ps, depth=4,
                             max_dist=32768, block_elems=256)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        parse_cover_cuda(torch.ones(2, 128, dtype=torch.int32))
+        parse_cover_cuda(torch.ones(256, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         emit_pack_cuda(ps.reshape(1, 256), ps.reshape(1, 256))
 
@@ -348,8 +349,8 @@ def test_lcp_kernel_matches_twin_gpu(cuda):
 
 @pytest.mark.gpu
 def test_parse_cover_kernel_matches_twin_gpu(cuda):
-    nl = jump_targets(torch.from_numpy(_steps(300, 9)).to(cuda)).contiguous()
-    assert torch.equal(parse_cover_cuda(nl), parse_cover_torch(nl))
+    step = torch.from_numpy(_steps(300, 9).astype(np.int64)).to(cuda)
+    assert torch.equal(parse_cover_cuda(step), parse_cover_steps_torch(step))
 
 
 @pytest.mark.gpu

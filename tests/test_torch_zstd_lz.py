@@ -214,11 +214,10 @@ def test_export_checks():
 def _zstd_shape_inputs(device):
     """B1's and B2's inputs for one 1 MiB tokenizer call of the corpus at
     the zstd path's settings: wcap 32 (8 words), 2 sort keys, stride 1,
-    depth 8, max_dist 131,071."""
+    depth 8, max_dist 131,071. B2's is the (2^20,) int64 step array."""
     from compu_tpu_torch.kernels import u32
     from compu_tpu_torch.kernels.deflate_v2 import _post_match
     from compu_tpu_torch.kernels.lcp_match import lcp_candidates_torch, sort_stage_lex
-    from compu_tpu_torch.kernels.parse_cover import jump_targets
     from compu_tpu_torch.utils.corpus import build_corpus
 
     N = 1 << 20
@@ -231,21 +230,21 @@ def _zstd_shape_inputs(device):
     bl, bd = lcp_candidates_torch(words, ps32, **kw)
     step, *_ = _post_match(blocks, ns, ps, bl.reshape(1, -1).to(torch.int64),
                            bd.reshape(1, -1).to(torch.int64), wcap=32)
-    return (words, ps32, kw), jump_targets(step.reshape(-1))
+    return (words, ps32, kw), step.reshape(-1)
 
 
 @pytest.mark.gpu
 def test_b1_b2_at_zstd_shape_gpu(cuda):
     from compu_tpu_torch.kernels.lcp_match import lcp_candidates_cuda, lcp_candidates_torch
-    from compu_tpu_torch.kernels.parse_cover import parse_cover_cuda, parse_cover_torch
+    from compu_tpu_torch.kernels.parse_cover import parse_cover_cuda, parse_cover_steps_torch
 
-    (words, ps, kw), nl = _zstd_shape_inputs(cuda)
+    (words, ps, kw), step = _zstd_shape_inputs(cuda)
     got = lcp_candidates_cuda(words, ps, **kw)
     want = lcp_candidates_torch(words, ps, **kw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert int(want[1].max()) > 32768  # distances past DEFLATE's window occur
-    assert nl.shape == (8192, 128)
-    assert torch.equal(parse_cover_cuda(nl), parse_cover_torch(nl))
+    assert step.shape == (8192 * 128,) and step.dtype == torch.int64
+    assert torch.equal(parse_cover_cuda(step), parse_cover_steps_torch(step))
 
 
 @pytest.mark.gpu
