@@ -4,12 +4,16 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives six paths of the port over the 16 MB benchmark corpus
+Drives seven paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
 4 groups of 16, for the DEFLATE paths):
 
 * **gzip_lex**, the flagship deployment: level-6 gzip with the segment
   index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``;
+* **gzip_decode**: that stream read back with its index through
+  ``BlockParallelDecoder()``: 4 batches of 16 blocks, each one launch of
+  the segment token scan (P3, ``csrc/inflate_scan.cu``), the expansion
+  and the pointer doubling in PyTorch, stored blocks copied on the host;
 * **zlib_hash**: the hash matcher (wcap 32, the encode's default, depth 16)
   in zlib mode, through ``_encode_blocks_batched`` and
   ``BlockParallelEncoder(mode=Zlib)``;
@@ -56,7 +60,13 @@ failure:
    steps;
 4. encode the corpus end to end on each DEFLATE encode path (one warm run,
    median of three each), check that zlib gives the corpus back, every
-   block status is ok, and the path launched its kernels;
+   block status is ok, and the path launched its kernels; decode the
+   gzip_lex stream on gzip_decode (one warm run, whose first batch's P3
+   arguments are kept, median of three) and require every decode to give
+   the corpus with 4 P3 launches; a stream with one byte flipped inside a
+   dynamic block to raise and mark every block failed; the first 4 blocks
+   decoded on the CPU (P3's plain version) to equal the card's decode; and
+   P3 to equal its plain version on the kept batch (rec, outp and bad);
 5. run adler_device and require each block's adler32 to equal
    ``zlib.adler32`` and the zlib_hash path's metas;
 6. encode the corpus on zstd_device (one warm run, median of three) and
@@ -80,17 +90,19 @@ The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 (with the ``bytes`` and ``ops`` it counts), ``bound_by``,
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
-``launches_per_encode`` (per decode for P2), and ``library_ms`` null with
-the reason: no one PyTorch call computes any of the seven functions. P1's
-and P2's entries also carry ``cycles_per_step`` (kernel ms at the SM clock
-of the shared-memory chase, over the longest chain's steps),
-``sass_per_step`` (one step of the main loop in the built SASS, by pipe)
-and ``dynamic_smem_bytes``.
+``launches_per_encode`` (per decode for P2 and P3), and ``library_ms``
+null with the reason: no one PyTorch call computes any of the eight
+functions. P1's, P2's and P3's entries also carry ``cycles_per_step``
+(kernel ms at the SM clock of the shared-memory chase, over the longest
+chain's steps; P3's steps are its longest lane's table reads),
+``sass_per_step`` (one step of the main loop in the built SASS, by pipe;
+P3's is one token) and ``dynamic_smem_bytes``.
 Without a CUDA device it fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path,
-and decodes the zstd frame, once with every stage synchronised before and
-after (ms per stage), and once under ``torch.profiler``. From the profile
+decodes the gzip_lex stream and the zstd frame, once with every stage
+synchronised before and after (ms per stage; for gzip_decode also the
+doubling rounds), and once under ``torch.profiler``. From the profile
 it counts the CUDA kernels and copies, takes the union of their intervals
 as the device's busy time, and prints the idle share of the profiled wall
 time and the six kernels with the most device time, one JSON line a path.
@@ -116,14 +128,16 @@ import zlib
 import numpy as np
 import torch
 
-from compu_tpu_torch import BlockParallelEncoder, DecodeStatus, ZlibMode, ZlibOptions, _build
-from compu_tpu_torch import decoder, make_block_encode_fn
+from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, DecodeStatus, ZlibMode
+from compu_tpu_torch import ZlibOptions, _build, decoder, make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
 from compu_tpu_torch.formats.zstd import decode as zstd_decode_mod
 from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
 from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
 from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
-from compu_tpu_torch.kernels import deflate_v2, deflate_v3, u32, zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import deflate_v2, deflate_v3, inflate_dyn, inflate_lut, u32
+from compu_tpu_torch.kernels import inflate as inflate_mod
+from compu_tpu_torch.kernels import zstd_lit_decode, zstd_seq
 from compu_tpu_torch.kernels.adler_tiles import (
     adler32_device,
     adler32_partials_cuda,
@@ -144,6 +158,7 @@ from compu_tpu_torch.kernels.deflate_v3 import (
     encode_blocks_dyn,
 )
 from compu_tpu_torch.kernels.emit_pack import emit_pack_cuda, emit_pack_torch
+from compu_tpu_torch.kernels.inflate_scan import NO_TOKEN, inflate_scan_cuda, inflate_scan_torch
 from compu_tpu_torch.kernels.lcp_match import (
     _adj_from_words,
     lcp_candidates_cuda,
@@ -158,6 +173,8 @@ from compu_tpu_torch.kernels.parse_cover import parse_cover_cuda, parse_cover_st
 from compu_tpu_torch.kernels.zstd_lit_decode import huf_decode_lanes_cuda, huf_decode_lanes_torch
 from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_torch
 from compu_tpu_torch.ops.xxhash import xxh64
+from compu_tpu_torch.parallel import scheduler
+from compu_tpu_torch.parallel.scheduler import BlockIndex, BlockState
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
 
 LEVEL = 6
@@ -188,11 +205,12 @@ PATHS = {
     "adler_device": ("adler_tiles",),
     "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
     "zstd_decode": ("huf_decode_lanes",),
+    "gzip_decode": ("inflate_scan",),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All seven kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All eight kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -207,7 +225,7 @@ COLD_BYTES = 100 << 20
 LCP_COST: dict = {}
 MATCH_COST: dict = {}
 # This script's own CUDA sources, built beside the package's kernels: the
-# shared-memory chase that measures P1's and P2's bound unit.
+# shared-memory chase that measures P1's, P2's and P3's bound unit.
 SMOKE_SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "smoke_csrc").glob("*.cu"))
 
 
@@ -432,6 +450,30 @@ def lit_decode_work(args, kw, outs):
                       f"run (smoke_csrc/smem_chase.cu)"}
 
 
+def inflate_scan_work(args, kw, outs):
+    """The longest lane's chain of table reads: one for a literal, two for a
+    match (the lit/len read, then the distance read at the offset it
+    gives), each at least one shared-memory round trip, as
+    :func:`scan_work`. Bytes: the spans of ``comps`` the lanes read (each
+    decoded block's bytes up to its last non-zero byte, where its sync
+    flush ends), the tables, ``seg_bits`` and ``ns`` in; the records,
+    ``outp`` and ``bad`` out."""
+    comps, seg_bits, ns, lit_lut, dist_lut = args
+    rec = outs[0].to(torch.int64)
+    took = rec != NO_TOKEN
+    lits = (took & (((rec >> 9) & 1) == 1)).sum(1)
+    reads = int((2 * took.sum(1) - lits).max())
+    nonzero = comps != 0
+    ends = comps.shape[1] - torch.argmax(nonzero.flip(1).to(torch.uint8), 1)
+    spans = int(torch.where((ns > 0) & nonzero.any(1), ends, 0).sum())
+    smem = smem_round_trip()
+    return spans + _nbytes(seg_bits, ns, lit_lut, dist_lut, *outs), reads, {
+        "ops_ms": reads * smem["ns"] * 1e-6, "ns_per_op": smem["ns"], "comps_span_bytes": spans,
+        "bound_note": f"the longest lane's dependent table reads x one shared-memory read, "
+                      f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
+                      f"run (smoke_csrc/smem_chase.cu)"}
+
+
 @functools.lru_cache(maxsize=1)
 def smem_round_trip(steps: int = 1 << 20) -> dict:
     """One dependent shared-memory read on this card: one thread chases
@@ -555,6 +597,15 @@ KERNELS = {
                                "compu_tpu/kernels/zstd_lit_decode_jax.py:32", ("zstd_decode",),
                                lit_decode_work,
                                replaces_note="a jax.lax.fori_loop, not a TPU kernel"),
+    "inflate_scan": Kernel(inflate_scan_cuda, inflate_scan_torch,
+                           "compu_tpu_torch/csrc/inflate_scan.cu",
+                           "compu_tpu/kernels/inflate_jax_lut.py:243", ("gzip_decode",),
+                           inflate_scan_work,
+                           replaces_note="the token scans of decode_blocks_indexed_lut (the "
+                                         "jax.lax.while_loop at inflate_jax_lut.py:243, steps at "
+                                         ":166), decode_blocks_indexed_dyn (inflate_jax_dyn.py:206"
+                                         ", :153) and decode_blocks_indexed (inflate_jax.py:204, "
+                                         ":138), not TPU kernels"),
 }
 # A twin whose call for the equality check takes this long or more (P1's
 # and P2's, Python loops of tiny launches a step) is timed by that call on
@@ -706,13 +757,17 @@ def _lanes_smem(args, kw) -> int:
 # of its table reads and their number a step, its steps an iteration of
 # the main loop and the dynamic shared memory a block asks for, both for
 # the inputs (args, kw). P1 walks 8 steps an iteration; P2 64 // max_bits
-# (16 at most; its max_bits is args[5]).
+# (16 at most; its max_bits is args[5]); P3 one token (a literal's one
+# table read, a match's two), at the 12-bit tables the path gives it,
+# which sit in static shared memory.
 CHAIN_KERNELS = {
     "fse_seq_scan": ("fse_seq_scan_kernel", "LDS.U16", 1, lambda args, kw: 8,
                      lambda args, kw: _build.lib().compu_fse_seq_scan_smem()),
     "huf_decode_lanes": ("huf_decode_lanes_kernel", "LDS.U8", 2,
                          lambda args, kw: min(64 // max(int(args[5].max()), 1), 16),
                          _lanes_smem),
+    "inflate_scan": ("inflate_scan_kernelILi12ELb1E", "LDS", 2, lambda args, kw: 1,
+                     lambda args, kw: 0),
 }
 
 
@@ -796,15 +851,168 @@ def summary(path: str, corpus: bytes, stream: bytes, times: list, launches: dict
     return res
 
 
-def gzip_lex_path(corpus: bytes) -> dict:
-    """The flagship path over the whole corpus."""
+def gzip_lex_path(corpus: bytes):
+    """The flagship path over the whole corpus; returns the measurements,
+    the last stream and its index."""
     enc, fn = make_encoder("gzip_lex")
     (stream, index, times), launches = run_path("gzip_lex", lambda: timed_encodes(enc, corpus))
     if zlib.decompress(stream, wbits=31) != corpus:
         raise AssertionError("gzip stream does not decode to the corpus")
     if len(index.segment_bits) != len(corpus) // BLOCK:
         raise AssertionError("segment index missing")
-    return summary("gzip_lex", corpus, stream, times, launches, last_timings=fn.last_timings)
+    return (summary("gzip_lex", corpus, stream, times, launches, last_timings=fn.last_timings),
+            stream, index)
+
+
+def block_kinds(stream: bytes, index) -> collections.Counter:
+    """The stream's blocks by kind, as the decoder routes them: stored
+    (copied on the host), fixed and dynamic (on the card)."""
+    kinds = collections.Counter()
+    for b, off in enumerate(index.compressed_offsets):
+        kind = inflate_dyn.parse_block_tables(stream[off:off + 4096])[0]
+        stored = kind == 0 or int(index.segment_bits[b][0]) < 0
+        kinds["stored" if stored else ("fixed", "dynamic")[kind - 1]] += 1
+    return kinds
+
+
+def corrupt_dynamic_block(stream: bytes, index) -> tuple[bytes, int]:
+    """``stream`` with the middle byte of its first dynamic block flipped;
+    returns it and the block's number."""
+    b = next(i for i, off in enumerate(index.compressed_offsets)
+             if inflate_dyn.parse_block_tables(stream[off:off + 4096])[0] == 2)
+    bad = bytearray(stream)
+    bad[index.compressed_offsets[b] + index.compressed_lengths[b] // 2] ^= 0xFF
+    return bytes(bad), b
+
+
+def gzip_decode_path(corpus: bytes, stream: bytes, index):
+    """The gzip_lex stream decoded on the card with its index: one warm
+    decode, whose first batch's P3 arguments are kept for the kernel
+    report, then three timed; each must give the corpus, with 4 P3 launches
+    a decode. Then a corrupted stream must raise and mark every block
+    failed, the first 4 blocks must decode to the same bytes on the CPU and
+    the card, and P3 is held to its plain version on the kept batch.
+    Returns the measurements and P3's kernel report entry."""
+    dec = BlockParallelDecoder(block_size=BLOCK)
+    kept = {}
+    scan = inflate_mod.inflate_scan
+
+    def recording(*args):
+        if not kept:
+            kept.update(args=tuple(a.clone() for a in args[:5]),
+                        kw=dict(k=args[5], rsteps=args[6]))
+        return scan(*args)
+
+    def decodes():
+        inflate_mod.inflate_scan = recording
+        try:
+            outs = [dec.decode(stream, index)]
+        finally:
+            inflate_mod.inflate_scan = scan
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(dec.decode(stream, index))
+            times.append(time.perf_counter() - t0)
+        return outs, times
+
+    (outs, times), launches = run_path("gzip_decode", decodes)
+    if any(out != corpus for out in outs):
+        raise AssertionError("a decode of the gzip_lex stream differs from the corpus")
+    batches = -(-len(index.raw_lengths) // BlockParallelDecoder.DEVICE_DECODE_BATCH)
+    if launches["inflate_scan"] != batches * len(outs):
+        raise AssertionError(f"{launches['inflate_scan']} P3 launches in {len(outs)} decodes of "
+                             f"{batches} batches")
+    if any(st.state != BlockState.Ok for st in dec.block_statuses):
+        raise AssertionError("a block of the gzip_lex stream did not decode ok")
+    kinds = block_kinds(stream, index)
+    log(f"gzip_decode: 4 card decodes give the corpus; blocks {dict(kinds)}; "
+        f"{launches['inflate_scan']} P3 launches ({batches} a decode)")
+
+    bad, b = corrupt_dynamic_block(stream, index)
+    failing = BlockParallelDecoder(block_size=BLOCK)
+    try:
+        failing.decode(bad, index)
+    except ValueError as exc:
+        error = str(exc)
+    else:
+        raise AssertionError(f"a stream with a byte flipped in block {b} decoded")
+    if any(st.state != BlockState.Failed for st in failing.block_statuses):
+        raise AssertionError("the corrupted stream's blocks are not all marked failed")
+    log(f"gzip_decode: a byte flipped in dynamic block {b} raises ({error}); every block failed")
+
+    head = BlockIndex(index.raw_lengths[:4], index.compressed_offsets[:4],
+                      index.compressed_lengths[:4], index.segment_bits[:4])
+    t0 = time.perf_counter()
+    cpu = BlockParallelDecoder(block_size=BLOCK, device="cpu").decode(stream, head)
+    t_cpu = time.perf_counter() - t0
+    if cpu != corpus[:4 * BLOCK] or BlockParallelDecoder(block_size=BLOCK).decode(stream,
+                                                                                  head) != cpu:
+        raise AssertionError("the first 4 blocks decode to other bytes on the CPU and the card")
+    log(f"gzip_decode: cpu == gpu decode of the first 4 blocks (cpu run {t_cpu:.1f} s)")
+    kernel = check_kernels({("inflate_scan", "gzip_decode"): (kept["args"], kept["kw"])},
+                           ["inflate_scan"])
+    sec = statistics.median(times)
+    res = {"path": "gzip_decode", "bytes": len(corpus), "compressed": len(stream),
+           "ratio": len(corpus) / len(stream), "median_s": sec, "runs_s": times,
+           "MBps": len(corpus) / sec / 1e6, "blocks": dict(kinds),
+           "p3_launches_per_decode": batches, "launches": launches, "runs_counted": len(outs)}
+    log("e2e " + json.dumps(res))
+    return res, kernel
+
+
+# The gzip decode's stages, by the module whose globals the decode looks
+# them up in: the host's header parse, the upload, the table build, P3,
+# the expansion, the doubling rounds, the fetches, the stored copies.
+DECODE_STAGES = (
+    (inflate_dyn, "parse_block_tables"), (scheduler, "_upload"),
+    (inflate_lut, "_lit_lut_block"), (inflate_lut, "_dist_lut_block"),
+    (inflate_mod, "inflate_scan"), (inflate_mod, "_expand"), (inflate_mod, "_resolve"),
+    (scheduler, "_fetch"), (scheduler, "_stored_copy"),
+)
+
+
+def gzip_decode_stage_ms(stream: bytes, index) -> dict:
+    """One gzip_decode with each stage synchronised before and after: ms
+    per stage, the rest of the decode, and the doubling rounds' count
+    (whole-map and compacted)."""
+    times = dict.fromkeys((name for _, name in DECODE_STAGES), 0.0)
+    rounds = collections.Counter()
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            rounds[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in DECODE_STAGES]
+    saved += [(inflate_mod, name, getattr(inflate_mod, name)) for name in ("_double", "_double_sub")]
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn) if name.startswith("_double") else timed(name, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        BlockParallelDecoder(block_size=BLOCK).decode(stream, index)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    times["rest"] = total - sum(times.values())
+    times["total"] = total
+    times["doubling_rounds"] = dict(rounds)
+    return times
 
 
 def make_encoder(path: str):
@@ -1287,8 +1495,9 @@ def device_profile(encode) -> dict:
 
 
 def profile_main(corpus: bytes) -> None:
-    """``--profile``: per encode path, one warm encode, one unprofiled, one
-    with the stages synchronised and one under the profiler."""
+    """``--profile``: per encode path, and for each decode, one warm run,
+    one unprofiled, one with the stages synchronised and one under the
+    profiler."""
     for path in ("gzip_lex", *HASH_PATHS):
         enc, _ = make_encoder(path)
         enc.encode(corpus)
@@ -1300,6 +1509,18 @@ def profile_main(corpus: bytes) -> None:
         res = {"path": path, "wall_ms": wall_ms, "stages_ms": stage_ms(enc, corpus),
                **device_profile(lambda: enc.encode(corpus))}
         log("profile " + json.dumps(res))
+    enc, _ = make_encoder("gzip_lex")
+    stream, index = enc.encode(corpus)
+    decode = functools.partial(BlockParallelDecoder(block_size=BLOCK).decode, stream, index)
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {"path": "gzip_decode", "wall_ms": wall_ms,
+           "stages_ms": gzip_decode_stage_ms(stream, index), **device_profile(decode)}
+    log("profile " + json.dumps(res))
     encode = functools.partial(zstd_frame, corpus, torch.device("cuda"))
     encode()
     torch.cuda.synchronize()
@@ -1357,18 +1578,20 @@ def main() -> None:
     kernels = check_kernels(
         kernel_inputs(torch.from_numpy(blocks[:16]).cuda(), torch.from_numpy(lens[:16]).cuda(),
                       torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args),
-        [name for name in KERNELS if name != "huf_decode_lanes"])
-    runs = {"gzip_lex": gzip_lex_path(corpus)}
+        [name for name in KERNELS if name not in ("huf_decode_lanes", "inflate_scan")])
+    runs = {}
+    runs["gzip_lex"], gz_stream, gz_index = gzip_lex_path(corpus)
+    runs["gzip_decode"], p3_entry = gzip_decode_path(corpus, gz_stream, gz_index)
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
     runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
     runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
-    kernels += p2_entry
+    kernels += p2_entry + p3_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
-        for p in ("gzip_lex", *HASH_PATHS, "zstd_device", "zstd_decode")))
+        for p in ("gzip_lex", "gzip_decode", *HASH_PATHS, "zstd_device", "zstd_decode")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]

@@ -12,7 +12,9 @@ reference's arrays:
 * ``crc_bit_matrix(c)`` — the CRC register contribution of every input bit
   of a c-byte lane (``checksum_jax._crc_bit_matrix``);
 * ``crc_fold_mats(lane_bytes, levels)`` — the GF(2) operators that shift a
-  register past lane_bytes * 2^k zero bytes (``deflate_jax_v2._crc_fold_mats``).
+  register past lane_bytes * 2^k zero bytes (``deflate_jax_v2._crc_fold_mats``);
+* the length and distance bases and extra bits, on the device for the
+  indexed inflate's lookup tables (``inflate_jax_lut.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..formats.deflate import consts
 from ..ops.checksum import (
     ADLER_MOD,
     CRC_TABLE,
@@ -96,6 +99,11 @@ _ON_DEVICE = {
     "stored_sync_flush": lambda: np.array([0, 0, 0, 0xFF, 0xFF], np.int64),
     "crc_bit_matrix": crc_bit_matrix,
     "crc_fold_mats": crc_fold_mats,
+    # The indexed inflate's length and distance symbol attributes.
+    "length_base": lambda: consts.LENGTH_BASE.astype(np.int64),
+    "length_extra": lambda: consts.LENGTH_EXTRA.astype(np.int64),
+    "dist_base": lambda: consts.DIST_BASE.astype(np.int64),
+    "dist_extra": lambda: consts.DIST_EXTRA.astype(np.int64),
 }
 
 

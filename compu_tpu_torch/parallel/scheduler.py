@@ -1,8 +1,8 @@
-"""Block-parallel stream encoder for the port (pigz-style).
+"""Block-parallel stream encoder and decoder for the port (pigz-style).
 
-The port's copy of the encode half of ``compu_tpu/parallel/scheduler.py``.
-A buffer is cut into fixed-size independent blocks, the device step
-encodes them, and the host assembles ONE standard zlib/gzip stream:
+The port's copy of ``compu_tpu/parallel/scheduler.py``. A buffer is cut
+into fixed-size independent blocks, the device step encodes them, and the
+host assembles ONE standard zlib/gzip stream:
 
 * every block is a self-contained run of deflate blocks ending in an empty
   stored block (Z_SYNC_FLUSH), so block outputs are byte-aligned and
@@ -13,30 +13,41 @@ encodes them, and the host assembles ONE standard zlib/gzip stream:
   combine algebra (``ops/checksum.py``);
 * the encoder records a block index (compressed offset, raw length).
 
-The port has no host re-encode: a failed device step, or a block whose
-output is implausible, marks the blocks failed and raises, so a fault on
-the card is never hidden behind a host encoder.
+``BlockParallelDecoder`` reads such a stream back with its index: on the
+device by default, each batch of 16 blocks one scan of kernel P3 and the
+expansion and resolution of ``kernels/inflate.py``, or on the host when
+asked for (``host=True``, stdlib ``zlib`` a block).
+
+The port has no host fallback either way: a failed device step, or a
+block whose output is implausible, marks the blocks failed and raises, so
+a fault on the card is never hidden behind a host codec.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from ..formats.deflate.options import ZlibMode, stream_header
 from ..ops import checksum
+from ..ops.bitio import BitReader
 from ..utils.metrics import Metrics, trace_span
 
-__all__ = ["BlockIndex", "BlockParallelEncoder", "BlockState", "BlockStatus"]
+__all__ = ["BlockIndex", "BlockParallelDecoder", "BlockParallelEncoder", "BlockState",
+           "BlockStatus"]
 
 
 class BlockState:
     """Per-block scheduler status."""
 
     Ok = "ok"
-    Failed = "failed"  # the device step failed; the stream aborts
+    Failed = "failed"  # the step failed; the stream aborts
 
 
 @dataclasses.dataclass
@@ -160,3 +171,172 @@ class BlockParallelEncoder:
                 total = checksum.crc32_combine(total, int(checks[i]), int(lens[i]))
             stream.extend(struct.pack("<II", total, n & 0xFFFFFFFF))
         return bytes(stream), index
+
+
+class BlockParallelDecoder:
+    """Decode a block-parallel stream with its side index.
+
+    Each block's bytes decode on their own (window reset, byte alignment).
+    By default the blocks decode on ``device`` (None: CUDA; ``"cpu"`` runs
+    the kernels' plain versions): batches of ``DEVICE_DECODE_BATCH`` blocks,
+    each block's header parsed on the host into code lengths, stored blocks
+    copied on the host (``_stored_copy``), every other block one row of the
+    batch's scan. A batch whose codes are all at most 12 bits takes the LUT
+    route, another the dyn route. Every batch is decoded before the first
+    result is fetched (its doubling rounds read their counts on the host).
+    The device route needs the index's ``segment_bits``; a batch that fails
+    its consistency check raises ``ValueError``.
+
+    ``host=True`` decodes every block on the host with stdlib ``zlib``, in a
+    thread pool, and is never taken otherwise. ``host_fallback`` is accepted
+    for the reference's signature and must stay False. A failure marks the
+    blocks ``Failed`` and raises."""
+
+    DEVICE_DECODE_BATCH = 16
+
+    def __init__(self, *, block_size: int = 1 << 18, device=None, host: bool = False,
+                 host_fallback: bool = False):
+        if host_fallback:
+            raise ValueError("the port has no host fallback: a device fault raises")
+        if block_size <= 0 or block_size % 128:
+            raise ValueError(f"block_size must be a positive multiple of 128, got {block_size}")
+        self.block_size = block_size
+        self.device = torch.device("cuda" if device is None else device)
+        self.host = host
+        #: Per-block statuses of the last decode() (BlockStatus list).
+        self.block_statuses: list[BlockStatus] = []
+
+    def decode(self, stream: bytes, index: BlockIndex) -> bytes:
+        nblocks = len(index.raw_lengths)
+        self.block_statuses = [BlockStatus(i) for i in range(nblocks)]
+        if self.host:
+            return self._decode_host(stream, index)
+        try:
+            if index.segment_bits is None:
+                raise ValueError("the index has no segment_bits: the device route needs them")
+            return self._decode_device(stream, index)
+        except Exception as exc:
+            for st in self.block_statuses:
+                st.state, st.error = BlockState.Failed, str(exc)
+            raise
+
+    def _decode_host(self, stream: bytes, index: BlockIndex) -> bytes:
+        def one(i, off, clen, rlen):
+            try:
+                return _host_inflate_block(stream[off: off + clen], rlen)
+            except Exception as exc:
+                self.block_statuses[i].state = BlockState.Failed
+                self.block_statuses[i].error = str(exc)
+                raise
+
+        jobs = list(zip(range(len(index.raw_lengths)), index.compressed_offsets,
+                        index.compressed_lengths, index.raw_lengths))
+        workers = min(os.cpu_count() or 1, len(jobs), 8)
+        if workers <= 1:
+            return b"".join(one(*j) for j in jobs)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            futs = [pool.submit(one, *j) for j in jobs]
+            return b"".join(f.result() for f in futs)
+
+    def _decode_device(self, stream: bytes, index: BlockIndex) -> bytes:
+        from ..kernels.inflate_dyn import decode_blocks_indexed_dyn, parse_block_tables
+        from ..kernels.inflate_lut import LUT_BITS, decode_blocks_indexed_lut
+
+        bs = self.block_size
+        cap = bs + bs // 4 + 64 + 16
+        nblocks = len(index.raw_lengths)
+        batch = self.DEVICE_DECODE_BATCH
+        runs = []
+        host_pieces: dict[int, bytes] = {}
+        for base in range(0, nblocks, batch):
+            cnt = min(batch, nblocks - base)
+            comps = np.zeros((batch, cap), dtype=np.uint8)
+            segs = np.zeros((batch, bs // 128), dtype=np.int32)
+            ns = np.zeros(batch, dtype=np.int32)
+            lit_lens = np.zeros((batch, 288), dtype=np.int32)
+            dist_lens = np.zeros((batch, 30), dtype=np.int32)
+            lit_lens[:, [0, 256]] = 1  # complete-ish tables for the inert rows
+            dist_lens[:, [0, 1]] = 1
+            for j in range(cnt):
+                b = base + j
+                off, clen = index.compressed_offsets[b], index.compressed_lengths[b]
+                rlen = index.raw_lengths[b]
+                blob = stream[off: off + clen]
+                kind, lit, dist, _ = parse_block_tables(blob[:4096])
+                if kind == 0 or int(np.asarray(index.segment_bits[b])[0]) < 0:
+                    host_pieces[b] = _stored_copy(blob, rlen)
+                    continue
+                if clen > cap - 12 or not 0 < rlen <= bs:
+                    raise ValueError(f"block {b}: {clen} compressed bytes for {rlen} "
+                                     f"does not fit blocks of {bs}")
+                comps[j, :clen] = np.frombuffer(blob, dtype=np.uint8)
+                segs[j] = np.asarray(index.segment_bits[b], dtype=np.int32)
+                ns[j] = rlen
+                lit_lens[j] = lit
+                dist_lens[j] = dist
+            decode = (decode_blocks_indexed_lut
+                      if max(int(lit_lens.max()), int(dist_lens.max())) <= LUT_BITS
+                      else decode_blocks_indexed_dyn)
+            dev = _upload((comps, segs, ns, lit_lens, dist_lens), self.device)
+            runs.append((*decode(*dev, n_out=bs), base, cnt))
+        oks = _fetch(torch.cat([ok for _, ok, _, _ in runs])) if runs else []
+        pieces = []
+        for (out, _, base, cnt), ok in zip(runs, oks):
+            if int(ok) != 1:
+                raise ValueError("device inflate failed consistency checks")
+            flat = _fetch(out)
+            for j in range(cnt):
+                b = base + j
+                if b in host_pieces:
+                    pieces.append(host_pieces[b])
+                else:
+                    pieces.append(flat[j * bs: j * bs + index.raw_lengths[b]].tobytes())
+        return b"".join(pieces)
+
+
+def _upload(arrays, device) -> list[torch.Tensor]:
+    """A batch's numpy arrays as tensors on ``device``."""
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host."""
+    return t.cpu().numpy()
+
+
+def _stored_copy(blob: bytes, raw_len: int) -> bytes:
+    """A block of stored deflate blocks (BTYPE 00): each sub-block's bytes
+    copied after its LEN == ~NLEN check, up to the end of ``blob`` (the
+    sync flush is an empty one). Raises on another block type, a length
+    mismatch, a sub-block past the end, or a total other than ``raw_len``.
+    No entropy decode: the reference's host memcpy of a stored block."""
+    r = BitReader(blob)
+    out = bytearray()
+    while r.remaining_bits() >= 8:
+        r.read(1)  # bfinal
+        if r.read(2) != 0:
+            raise ValueError("a stored block holds a block that is not stored")
+        r.align_byte()
+        at = r.bitpos >> 3
+        if at + 4 > len(blob):
+            raise ValueError("stored block header past the end of the block")
+        ln, nln = struct.unpack_from("<HH", blob, at)
+        if ln != nln ^ 0xFFFF:
+            raise ValueError(f"stored block LEN {ln} does not match NLEN {nln}")
+        if at + 4 + ln > len(blob):
+            raise ValueError("stored block bytes past the end of the block")
+        out += blob[at + 4: at + 4 + ln]
+        r.bitpos = (at + 4 + ln) * 8
+    if len(out) != raw_len:
+        raise ValueError(f"stored block copied {len(out)} bytes, expected {raw_len}")
+    return bytes(out)
+
+
+def _host_inflate_block(blob: bytes, raw_len: int) -> bytes:
+    """One block (a raw deflate run ending in a sync flush) inflated by
+    stdlib ``zlib``, for the explicit host route."""
+    d = zlib.decompressobj(-15)
+    out = d.decompress(bytes(blob) + b"\x01\x00\x00\xff\xff")
+    if not d.eof or len(out) != raw_len:
+        raise ValueError(f"block decoded {len(out)} bytes, expected {raw_len}")
+    return out

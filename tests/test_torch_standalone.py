@@ -70,6 +70,31 @@ def test_port_decoder_runs_stand_alone(tmp_path):
     assert "decode-standalone-ok" in proc.stdout
 
 
+def test_port_block_decoder_runs_stand_alone(tmp_path):
+    """The block encode and the indexed inflate (``BlockParallelDecoder``
+    on kernel P3's plain version) in a fresh interpreter: the stream
+    decodes to its input and none of the forbidden packages is loaded."""
+    code = (
+        "import sys\n"
+        "from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, ZlibMode\n"
+        "from compu_tpu_torch import make_block_encode_fn\n"
+        f"data = open({str(ROOT / 'tests' / 'data' / 'alice29.txt')!r}, 'rb').read()[:70000]\n"
+        "fn = make_block_encode_fn(ZlibMode.Gzip, segment_index=True, device='cpu')\n"
+        "stream, index = BlockParallelEncoder(fn, block_size=1 << 15).encode(data)\n"
+        "out = BlockParallelDecoder(block_size=1 << 15, device='cpu').decode(stream, index)\n"
+        "assert out == data\n"
+        "assert 'compu_tpu_torch.kernels.inflate_scan' in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('inflate-standalone-ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "inflate-standalone-ok" in proc.stdout
+
+
 def test_corpus_equals_bench(monkeypatch):
     """The port's corpus is bench.build_corpus's, byte for byte; the
     reference reads its text from the working directory, the copy from the
