@@ -3,6 +3,7 @@
 
     python3 ab_chains.py chains PARENT_DIR        # P1 and P2; PARENT_DIR: commit da778ed
     python3 ab_chains.py parse_cover PARENT_DIR   # B2; PARENT_DIR: commit f8599b4
+    python3 ab_chains.py inflate_scan PARENT_DIR  # P3; PARENT_DIR: commit 21570d8
 
 ``PARENT_DIR`` holds a checkout of the commit named (``git archive``
 unpacked). The earlier kernel is built from it into a library of its own
@@ -34,6 +35,21 @@ byte a position out, and does no work; the empty launch is its grid with
 nothing to do. Both kernels' loops that read shared memory go to
 ``ab_parse_cover_sass.txt``.
 
+``inflate_scan``: ``inflate_scan.cu`` of 21570d8 is P3 before its
+redesign, one 4-byte store a record slot from each thread's own row and a
+bit container refilled from device memory; its C interface is this
+tree's. On the first batch of ``chip_smoke.py``'s gzip_decode path (the
+gzip_lex stream of the 16 MB corpus, 16 blocks of 256 KiB, 32,768 lanes)
+at both of P3's shapes (``chip_smoke.p3_inputs``: the 12-bit tables at
+(6, 26), the dyn route's 15-bit tables at (1, 128)) both designs are held
+to the plain version exactly and timed in turns, empty launch, copy floor,
+parent, this tree, this tree, parent, copy floor, empty launch, beside
+P3's bound (``chip_smoke.inflate_scan_work``). The copy floor
+(``compu_inflate_copy_floor`` in ``smoke_csrc/copy_floor.cu``) reads each
+256-lane block's run of the stream and writes its rows of 511, coalesced,
+on P3's grid, and does no work. Both kernels' loops that read shared
+memory go to ``ab_inflate_scan_sass.txt``.
+
 The last line is one JSON object with the times.
 """
 
@@ -50,7 +66,7 @@ import torch
 
 import chip_smoke as cs
 from compu_tpu_torch import _build
-from compu_tpu_torch.kernels import parse_cover, zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import inflate_scan, parse_cover, zstd_lit_decode, zstd_seq
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {
@@ -218,7 +234,101 @@ def parse_cover_main(parent: pathlib.Path) -> None:
     print(json.dumps({"kernels": res}))
 
 
-MODES = {"chains": chains_main, "parse_cover": parse_cover_main}
+def first_decode_batch(corpus: bytes) -> list:
+    """The first batch ``BlockParallelDecoder()`` uploads when it decodes
+    the gzip_lex stream of ``corpus`` (encoded on the card)."""
+    enc, _ = cs.make_encoder("gzip_lex")
+    stream, index = enc.encode(corpus)
+    with cs.first_upload() as kept:
+        out = cs.BlockParallelDecoder(block_size=cs.BLOCK).decode(stream, index)
+    if out != corpus:
+        raise AssertionError("the decode of the gzip_lex stream differs from the corpus")
+    return kept
+
+
+def inflate_scan_main(parent: pathlib.Path) -> None:
+    lib_parent = _build.build([parent / "compu_tpu_torch" / "csrc" / "inflate_scan.cu"],
+                              "libcompu_parent_p3")
+    scan = ctypes.CDLL(str(lib_parent)).compu_inflate_scan
+    scan.argtypes, scan.restype = list(_build._SIGNATURES["compu_inflate_scan"]), ctypes.c_int
+    smoke = ctypes.CDLL(str(_build.build(cs.SMOKE_SOURCES, "libcompu_smoke")))
+    floor, empty = smoke.compu_inflate_copy_floor, smoke.compu_empty_launch
+    floor.argtypes = [_P, _LL, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
+    floor.restype = ctypes.c_int
+    empty.argtypes, empty.restype = [_LL, _P], ctypes.c_int
+
+    def outputs(comps, seg_bits, R):
+        L = seg_bits.numel()
+        return (torch.empty(L, R, dtype=torch.int32, device=comps.device),
+                torch.empty(L, dtype=torch.int32, device=comps.device),
+                torch.empty(L, dtype=torch.bool, device=comps.device))
+
+    def parent_design(comps, seg_bits, ns, lit, dist, k, rsteps):
+        rec, outp, bad = outputs(comps, seg_bits, k * rsteps)
+        bits = lit.shape[1].bit_length() - 1
+        if scan(comps.data_ptr(), comps.shape[1], comps.shape[0], seg_bits.data_ptr(),
+                seg_bits.shape[1], ns.data_ptr(), lit.data_ptr(), dist.data_ptr(), bits, k,
+                rsteps, rec.data_ptr(), outp.data_ptr(), bad.data_ptr(),
+                _build.stream_handle(comps)):
+            raise RuntimeError("the parent's inflate_scan failed to launch")
+        return rec, outp, bad
+
+    with open(_build.BUILD_DIR / "ab_inflate_scan_sass.txt", "w") as fh:
+        for label, lib, symbol in (("parent", lib_parent, "inflate_scan_kernelILi12ELb1E"),
+                                   ("tree", _build.build(), "inflate_scan_kernelILi12EE")):
+            dump_loops(label, lib, symbol, fh)
+    chase = cs.smem_round_trip()
+    ghz = chase["cycles"] / chase["ns"]
+    batch = first_decode_batch(cs.build_corpus(cs.CORPUS_BYTES))
+    # Each block's bits up to its last non-zero byte, where its sync flush ends.
+    nonzero = batch[0] != 0
+    ends = ((nonzero.shape[1] - torch.argmax(nonzero.flip(1).to(torch.uint8), 1)) * 8).to(
+        torch.int32)
+
+    def copy_floor(comps, seg_bits, ns, lit, dist, k, rsteps):
+        rec, outp, bad = outputs(comps, seg_bits, k * rsteps)
+        if floor(comps.data_ptr(), comps.shape[1], comps.shape[0], seg_bits.data_ptr(),
+                 seg_bits.shape[1], ns.data_ptr(), ends.data_ptr(), lit.data_ptr(),
+                 dist.data_ptr(), lit.shape[1].bit_length() - 1, k * rsteps, rec.data_ptr(),
+                 outp.data_ptr(), bad.data_ptr(), _build.stream_handle(comps)):
+            raise RuntimeError("compu_inflate_copy_floor failed to launch")
+        return rec, outp, bad
+
+    def empty_launch(comps, seg_bits, *_, **__):
+        if empty(seg_bits.numel() // 32, _build.stream_handle(comps)):
+            raise RuntimeError("compu_empty_launch failed to launch")
+
+    res = []
+    for shape, (args, kw) in cs.p3_inputs(batch).items():
+        want = inflate_scan.inflate_scan_torch(*args, **kw)
+        for fn in (parent_design, inflate_scan.inflate_scan_cuda):
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"inflate_scan ({shape}): a design differs from the plain "
+                                     f"one")
+        nbytes, reads, chain = cs.inflate_scan_work(args, kw, want)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S * 1e3, chain["ops_ms"])
+        times = {"empty_launch": [], "copy_floor": [], "parent": [], "tree": []}
+        for label, fn in (("empty_launch", empty_launch), ("copy_floor", copy_floor),
+                          ("parent", parent_design), ("tree", inflate_scan.inflate_scan_cuda),
+                          ("tree", inflate_scan.inflate_scan_cuda), ("parent", parent_design),
+                          ("copy_floor", copy_floor), ("empty_launch", empty_launch)):
+            times[label].append(cs.device_ms(fn, args, kw, k=50))
+        entry = {"name": "inflate_scan", "shape": shape, "k": kw["k"], "rsteps": kw["rsteps"],
+                 "lanes": args[1].numel(), "bytes": nbytes, "longest_lane_reads": reads,
+                 "chain_ms": chain["ops_ms"], "bound_ms": bound,
+                 **{f"{k}_ms": v for k, v in times.items()},
+                 **{f"{k}_share_of_bound": [bound / t for t in v] for k, v in times.items()},
+                 **{f"{k}_cycles_per_read": [t * 1e6 * ghz / reads for t in times[k]]
+                    for k in ("parent", "tree")}}
+        cs.log("ab " + json.dumps(entry))
+        res.append(entry)
+    print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "kernels": res}))
+
+
+MODES = {"chains": chains_main, "parse_cover": parse_cover_main,
+         "inflate_scan": inflate_scan_main}
 
 
 def main() -> None:

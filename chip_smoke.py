@@ -61,12 +61,14 @@ failure:
 4. encode the corpus end to end on each DEFLATE encode path (one warm run,
    median of three each), check that zlib gives the corpus back, every
    block status is ok, and the path launched its kernels; decode the
-   gzip_lex stream on gzip_decode (one warm run, whose first batch's P3
-   arguments are kept, median of three) and require every decode to give
-   the corpus with 4 P3 launches; a stream with one byte flipped inside a
-   dynamic block to raise and mark every block failed; the first 4 blocks
-   decoded on the CPU (P3's plain version) to equal the card's decode; and
-   P3 to equal its plain version on the kept batch (rec, outp and bad);
+   gzip_lex stream on gzip_decode (one warm run, whose first batch is
+   kept, median of three) and require every decode to give the corpus
+   with 4 P3 launches; a stream with one byte flipped inside a dynamic
+   block to raise and mark every block failed; the first 4 blocks decoded
+   on the CPU (P3's plain version) to equal the card's decode; and P3 to
+   equal its plain version on the kept batch (rec, outp and bad), with the
+   path's 12-bit tables at (K, RSTEPS) = (6, 26) and, as its second shape,
+   with the dyn route's 15-bit tables (``inflate_dyn``) at (1, 128);
 5. run adler_device and require each block's adler32 to equal
    ``zlib.adler32`` and the zlib_hash path's metas;
 6. encode the corpus on zstd_device (one warm run, median of three) and
@@ -96,7 +98,8 @@ functions. P1's, P2's and P3's entries also carry ``cycles_per_step``
 (kernel ms at the SM clock of the shared-memory chase, over the longest
 chain's steps; P3's steps are its longest lane's table reads),
 ``sass_per_step`` (one step of the main loop in the built SASS, by pipe;
-P3's is one token) and ``dynamic_smem_bytes``.
+P3's is one loop iteration, up to two tokens) and ``dynamic_smem_bytes``;
+P3's also carries its second shape under ``other_shapes``.
 Without a CUDA device it fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path,
@@ -112,6 +115,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -158,7 +162,12 @@ from compu_tpu_torch.kernels.deflate_v3 import (
     encode_blocks_dyn,
 )
 from compu_tpu_torch.kernels.emit_pack import emit_pack_cuda, emit_pack_torch
-from compu_tpu_torch.kernels.inflate_scan import NO_TOKEN, inflate_scan_cuda, inflate_scan_torch
+from compu_tpu_torch.kernels.inflate_scan import (
+    NO_TOKEN,
+    SEG,
+    inflate_scan_cuda,
+    inflate_scan_torch,
+)
 from compu_tpu_torch.kernels.lcp_match import (
     _adj_from_words,
     lcp_candidates_cuda,
@@ -448,6 +457,21 @@ def lit_decode_work(args, kw, outs):
         "bound_note": f"the longest lane's dependent steps x one shared-memory read, "
                       f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
                       f"run (smoke_csrc/smem_chase.cu)"}
+
+
+def p3_inputs(arrays) -> dict:
+    """P3's two shapes on one of the decoder's batches (its upload, on the
+    card: comps, seg_bits, ns and the lit/len and distance code lengths):
+    ``lut``, the 12-bit tables at (K, RSTEPS) = (6, 26), as the LUT route
+    the path takes builds them, and ``dyn``, the dyn route's 15-bit tables
+    (``inflate_dyn``) at (1, 128). Returns {shape: (args, kw)}."""
+    comps, segs, ns, lit, dist = arrays
+    return {"lut": ((comps, segs, ns, inflate_lut._lit_lut_block(lit),
+                     inflate_lut._dist_lut_block(dist)),
+                    dict(k=inflate_lut.K, rsteps=inflate_lut.RSTEPS)),
+            "dyn": ((comps, segs, ns, inflate_lut._lit_lut_block(lit, inflate_dyn.MAXB),
+                     inflate_lut._dist_lut_block(dist, inflate_dyn.MAXB)),
+                    dict(k=1, rsteps=SEG))}
 
 
 def inflate_scan_work(args, kw, outs):
@@ -757,17 +781,20 @@ def _lanes_smem(args, kw) -> int:
 # of its table reads and their number a step, its steps an iteration of
 # the main loop and the dynamic shared memory a block asks for, both for
 # the inputs (args, kw). P1 walks 8 steps an iteration; P2 64 // max_bits
-# (16 at most; its max_bits is args[5]); P3 one token (a literal's one
-# table read, a match's two), at the 12-bit tables the path gives it,
-# which sit in static shared memory.
+# (16 at most; its max_bits is args[5]); P3 one iteration of its loop
+# for lanes whose reads all lie in the staged span: the three shared reads
+# of its 64-bit window and its two table reads (a match, or up to two
+# literals), at the 12-bit tables the path gives it, which sit in dynamic
+# shared memory with the staged rows and span.
 CHAIN_KERNELS = {
     "fse_seq_scan": ("fse_seq_scan_kernel", "LDS.U16", 1, lambda args, kw: 8,
                      lambda args, kw: _build.lib().compu_fse_seq_scan_smem()),
     "huf_decode_lanes": ("huf_decode_lanes_kernel", "LDS.U8", 2,
                          lambda args, kw: min(64 // max(int(args[5].max()), 1), 16),
                          _lanes_smem),
-    "inflate_scan": ("inflate_scan_kernelILi12ELb1E", "LDS", 2, lambda args, kw: 1,
-                     lambda args, kw: 0),
+    "inflate_scan": ("inflate_scan_kernelILi12EE", "LDS", 5, lambda args, kw: 1,
+                     lambda args, kw: _build.lib().compu_inflate_scan_smem(
+                         args[3].shape[1].bit_length() - 1, kw["k"], kw["rsteps"])),
 }
 
 
@@ -885,30 +912,43 @@ def corrupt_dynamic_block(stream: bytes, index) -> tuple[bytes, int]:
     return bytes(bad), b
 
 
+@contextlib.contextmanager
+def first_upload():
+    """While open, ``BlockParallelDecoder`` uploads as usual, and the list
+    it yields gets copies of the first batch uploaded (comps, seg_bits, ns,
+    lit/len and distance code lengths, on the card)."""
+    kept = []
+    upload = scheduler._upload
+
+    def recording(arrays, device):
+        out = upload(arrays, device)
+        if not kept:
+            kept.extend(t.clone() for t in out)
+        return out
+
+    scheduler._upload = recording
+    try:
+        yield kept
+    finally:
+        scheduler._upload = upload
+
+
 def gzip_decode_path(corpus: bytes, stream: bytes, index):
     """The gzip_lex stream decoded on the card with its index: one warm
-    decode, whose first batch's P3 arguments are kept for the kernel
-    report, then three timed; each must give the corpus, with 4 P3 launches
-    a decode. Then a corrupted stream must raise and mark every block
-    failed, the first 4 blocks must decode to the same bytes on the CPU and
-    the card, and P3 is held to its plain version on the kept batch.
-    Returns the measurements and P3's kernel report entry."""
+    decode, whose first batch is kept for the kernel report, then three
+    timed; each must give the corpus, with 4 P3 launches a decode. Then a
+    corrupted stream must raise and mark every block failed, the first 4
+    blocks must decode to the same bytes on the CPU and the card, and P3 is
+    held to its plain version on the kept batch at both of its shapes
+    (:func:`p3_inputs`). Returns the measurements and P3's kernel report
+    entry."""
     dec = BlockParallelDecoder(block_size=BLOCK)
-    kept = {}
-    scan = inflate_mod.inflate_scan
-
-    def recording(*args):
-        if not kept:
-            kept.update(args=tuple(a.clone() for a in args[:5]),
-                        kw=dict(k=args[5], rsteps=args[6]))
-        return scan(*args)
+    kept = []
 
     def decodes():
-        inflate_mod.inflate_scan = recording
-        try:
+        with first_upload() as first:
             outs = [dec.decode(stream, index)]
-        finally:
-            inflate_mod.inflate_scan = scan
+        kept.extend(first)
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -951,8 +991,15 @@ def gzip_decode_path(corpus: bytes, stream: bytes, index):
                                                                                   head) != cpu:
         raise AssertionError("the first 4 blocks decode to other bytes on the CPU and the card")
     log(f"gzip_decode: cpu == gpu decode of the first 4 blocks (cpu run {t_cpu:.1f} s)")
-    kernel = check_kernels({("inflate_scan", "gzip_decode"): (kept["args"], kept["kw"])},
-                           ["inflate_scan"])
+    shapes = p3_inputs(kept)
+    kernel = check_kernels({("inflate_scan", "gzip_decode"): shapes["lut"]}, ["inflate_scan"])
+    dyn = hold_to_twin("inflate_scan", "gzip_decode", KERNELS["inflate_scan"], *shapes["dyn"])
+    chase = smem_round_trip()
+    dyn.update(shape="dyn: 15-bit tables (inflate_dyn) at k 1, rsteps 128, on the same batch; "
+                     "the path's streams need none, so it launches none",
+               cycles_per_step=dyn["ms"] * 1e6 / dyn["ops"] * chase["cycles"] / chase["ns"],
+               dynamic_smem_bytes=CHAIN_KERNELS["inflate_scan"][4](*shapes["dyn"]))
+    kernel[0]["other_shapes"] = [dyn]
     sec = statistics.median(times)
     res = {"path": "gzip_decode", "bytes": len(corpus), "compressed": len(stream),
            "ratio": len(corpus) / len(stream), "median_s": sec, "runs_s": times,

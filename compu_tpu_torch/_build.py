@@ -48,6 +48,7 @@ _SIGNATURES = {
     "compu_fse_seq_scan_smem": (),
     "compu_huf_decode_lanes": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P),
     "compu_inflate_scan": (_P, _LL, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "compu_inflate_scan_smem": (_I, _I, _I),
 }
 
 

@@ -141,8 +141,10 @@ def inflate_scan_torch(comps, seg_bits, ns, lit_lut, dist_lut, k: int, rsteps: i
 
 def inflate_scan_cuda(comps, seg_bits, ns, lit_lut, dist_lut, k: int, rsteps: int):
     """The CUDA kernel (``csrc/inflate_scan.cu``); same contract as
-    :func:`inflate_scan_torch`. ``comps`` must be 16-byte aligned (its rows
-    are read as 32-bit words)."""
+    :func:`inflate_scan_torch`. ``comps``, ``lit_lut`` and ``dist_lut``
+    must be 16-byte aligned (they are copied into shared memory 16 bytes at
+    a time), and a block's record rows must fit its shared memory
+    (``k * rsteps`` of 171 or less fits at 12 bits, 203 or less at 15)."""
     from .. import _build
 
     _build.require(comps, "comps", ndim=2, dtype=torch.uint8)
@@ -152,8 +154,12 @@ def inflate_scan_cuda(comps, seg_bits, ns, lit_lut, dist_lut, k: int, rsteps: in
         if t.device != comps.device:
             raise ValueError(f"{name} must be on {comps.device}")
     bits = _check_scan(comps, seg_bits, ns, lit_lut, dist_lut, k, rsteps)
-    if comps.data_ptr() % 16:
-        raise ValueError("comps must be 16-byte aligned")
+    for name, t in (("comps", comps), ("lit_lut", lit_lut), ("dist_lut", dist_lut)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not _build.lib().compu_inflate_scan_smem(bits, k, rsteps):
+        raise ValueError(f"k * rsteps = {k * rsteps} record slots a lane do not fit the "
+                         f"kernel's shared memory")
     B, CAP = comps.shape
     S = seg_bits.shape[1]
     dev = comps.device

@@ -57,7 +57,28 @@ def case_data(name: str) -> bytes:
         return half + half
     if name == "stored":
         return rng.integers(0, 256, BS, dtype=np.uint8).tobytes()
+    if name == "debruijn":      # dynamic, all literals, 5-6-bit codes: no 3-gram repeats
+        return rng.permutation(256).astype(np.uint8)[de_bruijn(32, 3)].tobytes()
     raise KeyError(name)
+
+
+def de_bruijn(k: int, n: int) -> list[int]:
+    """The de Bruijn sequence B(k, n): every n-gram over k symbols once."""
+    a, seq = [0] * (k * n), []
+
+    def db(t: int, p: int) -> None:
+        if t > n:
+            if n % p == 0:
+                seq.extend(a[1:p + 1])
+            return
+        a[t] = a[t - p]
+        db(t + 1, p)
+        for j in range(a[t - p] + 1, k):
+            a[t] = j
+            db(t + 1, t)
+
+    db(1, 1)
+    return seq
 
 
 @functools.lru_cache(maxsize=None)
@@ -327,6 +348,29 @@ def test_plain_scan_records(route):
     assert tokens > 0
 
 
+@pytest.mark.parametrize("route", ["lut", "dyn"])
+def test_all_literal_short_codes_equal_reference(ref, route):
+    """A block of literals only, each with a 5- or 6-bit code (a de Bruijn
+    sequence over 32 bytes holds no repeated 3-gram): two fit one 12-bit
+    lookup, the case P3's two-literal entries take. Every lane holds 128
+    literals, and the decode equals the reference's and the data."""
+    import jax.numpy as jnp
+
+    arrays = batch(("debruijn", "text"), rows=2)
+    lens = arrays[3][0][:256]
+    assert set(lens[lens > 0].tolist()) <= {5, 6}
+    rec, outp, bad = inflate_scan.inflate_scan(*scan_args(arrays, route))
+    lits = ((rec.to(torch.int64) >> 9) & 1).sum(1)[:len(case_data("debruijn")) // 128]
+    assert not bad.any() and bool((lits == 128).all())
+    port_fn = {"lut": inflate_lut.decode_blocks_indexed_lut,
+               "dyn": inflate_dyn.decode_blocks_indexed_dyn}[route]
+    ref_fn = {"lut": ref[2].decode_blocks_indexed_lut,
+              "dyn": ref[1].decode_blocks_indexed_dyn}[route]
+    port = port_fn(*to_torch(arrays), n_out=BS)
+    assert_same(port, ref_fn(*map(jnp.asarray, arrays), n_out=BS), arrays[2])
+    assert port[0][:arrays[2][0]].numpy().tobytes() == case_data("debruijn")
+
+
 def test_scan_dispatch_and_refusals():
     args = scan_args(batch(("text",), rows=1), "lut")
     with pytest.raises(ValueError, match="CUDA"):
@@ -353,7 +397,50 @@ GPU_CASES = {
     "long_matches": ("far", "runs"),
     "merged": ("runs",),
     "inert_and_corrupt": ("text", "stored", "tail"),
+    "reads_leave_the_span": ("text", "literals"),
+    "partial_last_block": ("tail", "text"),
+    "one_row": ("text",),
+    "inert_between": ("text", "stored", "far"),
+    "all_literal_short_codes": ("debruijn", "literals"),
+    "random_tables": ("text", "literals"),
 }
+
+
+def _leave_span(arrays):
+    """Lanes whose reads leave their CUDA block's staged run of the stream:
+    one pointed past the run (at a lane 45 segments on), one at its block's
+    last byte, one at the last bits of ``comps``."""
+    comps, segs, ns, lit, dist = (a.copy() for a in arrays)
+    segs[0, 255] = (segs[0, 255] & ~0xFFFFFF) | (segs[0, 300] & 0xFFFFFF)
+    end = len(encoded("text")[0]) * 8 - 8
+    segs[0, 100] = (segs[0, 100] & ~0xFFFFFF) | end
+    segs[1, 7] = (segs[1, 7] & ~0xFFFFFF) | (CAP * 8 - 3)
+    return comps, segs, ns, lit, dist
+
+
+def _partial_last_block(arrays):
+    """S not a multiple of 32 or 256: the segments up to one, past 300, that
+    no merged match reaches into; the rows' lengths cut there."""
+    comps, segs, ns, lit, dist = arrays
+    S = next(s for s in range(301, BS // 128) if segs[1, s] >> 24 == 0)
+    return comps, segs[:, :S].copy(), np.minimum(ns, S * 128), lit, dist
+
+
+# Per case: the batch's edit, and whether the scan is ok (None: the lanes
+# pointed elsewhere decide it).
+GPU_EDITS = {"reads_leave_the_span": (_leave_span, None),
+             "partial_last_block": (_partial_last_block, True),
+             "inert_and_corrupt": (lambda a: a, False),
+             "random_tables": (lambda a: a, None)}
+
+
+def _random_tables(args, seed: int = 10):
+    """Tables of random words in place of the block's: no prefix code, any
+    field values; the kernel must still equal the plain version."""
+    rng = np.random.default_rng(seed)
+    for t in args[3:5]:
+        t.copy_(torch.from_numpy(rng.integers(-2**31, 2**31, tuple(t.shape), dtype=np.int64)
+                                 .astype(np.int32)))
 
 
 @pytest.mark.gpu
@@ -363,24 +450,28 @@ def test_p3_equals_plain_gpu(cuda, case, route):
     names = GPU_CASES[case]
     corrupt = case == "inert_and_corrupt"
     flip = int(len(encoded(names[0])[0]) * 0.3) if corrupt else None
-    arrays = batch(names, rows=max(len(names), 2), flip=flip)
-    args = scan_args(arrays, route, cuda)
+    arrays = batch(names, rows=1 if case == "one_row" else max(len(names), 2), flip=flip)
+    edit, expect_ok = GPU_EDITS.get(case, (lambda a: a, True))
+    args = scan_args(edit(arrays), route, cuda)
     if corrupt:  # and invalid distance codes in half of the last block's table
         args[4][-1, 1::2] &= ~1
+    if case == "random_tables":
+        _random_tables(args)
     got = inflate_scan.inflate_scan_cuda(*args)
     torch.cuda.synchronize()
     want = inflate_scan.inflate_scan_torch(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    if case == "all_literal":
+    if case in ("all_literal", "all_literal_short_codes"):
         assert int(((got[0] & 0x3FF) >> 9).sum(1).max()) == 128
     if case == "long_matches":
         rec = got[0].to(torch.int64)
         took = rec != inflate_scan.NO_TOKEN
         assert int(((rec >> 10) + 1)[took & ((rec >> 9) & 1 == 0)].max()) == 32768
-    ok = inflate._scan_ok(args[1], args[2], got[1], got[2])
-    assert bool(ok) != corrupt
-    assert bool(got[2].any()) == corrupt
+    if expect_ok is not None:
+        ok = inflate._scan_ok(args[1], args[2], got[1], got[2])
+        assert bool(ok) == expect_ok
+        assert bool(got[2].any()) != expect_ok
 
 
 @pytest.mark.gpu
@@ -411,6 +502,12 @@ def test_p3_refusals_gpu(cuda):
     unaligned = flat[4:4 + comps.numel()].view(comps.shape)
     with pytest.raises(ValueError, match="aligned"):
         inflate_scan.inflate_scan_cuda(unaligned, *args[1:])
+    flat = torch.zeros(args[3].numel() + 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="lit_lut must be 16-byte aligned"):
+        inflate_scan.inflate_scan_cuda(*args[:3], flat[1:1 + args[3].numel()].view(
+            args[3].shape), *args[4:])
+    with pytest.raises(ValueError, match="shared memory"):
+        inflate_scan.inflate_scan_cuda(*args[:5], 8, 256)
     with pytest.raises(ValueError, match="multiple of 16"):
         inflate_scan.inflate_scan_cuda(comps[:, :CAP - 4].contiguous(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
