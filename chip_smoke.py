@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives seven paths of the port over the 16 MB benchmark corpus
+Drives eight paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
 4 groups of 16, for the DEFLATE paths):
 
@@ -14,6 +14,14 @@ Drives seven paths of the port over the 16 MB benchmark corpus
   ``BlockParallelDecoder()``: 4 batches of 16 blocks, each one launch of
   the segment token scan (P3, ``csrc/inflate_scan.cu``), the expansion
   and the pointer doubling in PyTorch, stored blocks copied on the host;
+* **gzip_foreign_decode**: the corpus compressed by stdlib ``zlib`` (level
+  6, gzip framing: no index) and decoded through
+  ``decoder.Interface.zlib_device(ZlibMode.Auto)``: each deflate block's
+  header parsed on the host, its 15-bit tables built on the card, then one
+  launch of the speculative 48-phase chunk scan (P4,
+  ``csrc/inflate_spec.cu``) a wave of 256 chunks of 512 bits, the true
+  path walked on the host, and the stream-global expansion and pointer
+  doubling in PyTorch;
 * **zlib_hash**: the hash matcher (wcap 32, the encode's default, depth 16)
   in zlib mode, through ``_encode_blocks_batched`` and
   ``BlockParallelEncoder(mode=Zlib)``;
@@ -69,6 +77,16 @@ failure:
    equal its plain version on the kept batch (rec, outp and bad), with the
    path's 12-bit tables at (K, RSTEPS) = (6, 26) and, as its second shape,
    with the dyn route's 15-bit tables (``inflate_dyn``) at (1, 128);
+   decode the stdlib gzip stream on gzip_foreign_decode (one warm decode,
+   whose waves are recorded, then three timed; each one-shot into a buffer
+   of the corpus length plus 16) and require every decode to give the
+   corpus with status Finished and P4 launched; the stream with one byte
+   flipped in the middle of its first dynamic block not to finish; the
+   stream cut in half to return NeedInput; the first 1 MiB's own gzip
+   stream to decode to the same bytes on the CPU (P4's plain version) and
+   the card; and P4 to equal its plain version exactly on two waves, the
+   first wave of the first dynamic block and the stream's last wave, where
+   lanes retire on the stream's end;
 5. run adler_device and require each block's adler32 to equal
    ``zlib.adler32`` and the zlib_hash path's metas;
 6. encode the corpus on zstd_device (one warm run, median of three) and
@@ -92,20 +110,23 @@ The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 (with the ``bytes`` and ``ops`` it counts), ``bound_by``,
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
-``launches_per_encode`` (per decode for P2 and P3), and ``library_ms``
-null with the reason: no one PyTorch call computes any of the eight
-functions. P1's, P2's and P3's entries also carry ``cycles_per_step``
+``launches_per_encode`` (per decode for P2, P3 and P4), and
+``library_ms`` null with the reason: no one PyTorch call computes any of
+the nine functions. P1's, P2's and P3's entries also carry ``cycles_per_step``
 (kernel ms at the SM clock of the shared-memory chase, over the longest
 chain's steps; P3's steps are its longest lane's table reads),
 ``sass_per_step`` (one step of the main loop in the built SASS, by pipe;
 P3's is one loop iteration, up to two tokens) and ``dynamic_smem_bytes``;
-P3's also carries its second shape under ``other_shapes``.
+P3's also carries its second shape under ``other_shapes``, and so does
+P4's (the last wave), whose entries carry ``cycles_per_step`` (its
+longest lane's table reads) but no SASS step.
 Without a CUDA device it fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path,
-decodes the gzip_lex stream and the zstd frame, once with every stage
-synchronised before and after (ms per stage; for gzip_decode also the
-doubling rounds), and once under ``torch.profiler``. From the profile
+decodes the gzip_lex stream, the stdlib gzip stream (gzip_foreign_decode)
+and the zstd frame, once with every stage synchronised before and after
+(ms per stage; for gzip_decode and gzip_foreign_decode also the doubling
+rounds), and once under ``torch.profiler``. From the profile
 it counts the CUDA kernels and copies, takes the union of their intervals
 as the device's busy time, and prints the idle share of the profiled wall
 time and the six kernels with the most device time, one JSON line a path.
@@ -135,13 +156,14 @@ import torch
 from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, DecodeStatus, ZlibMode
 from compu_tpu_torch import ZlibOptions, _build, decoder, make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
+from compu_tpu_torch.formats.deflate import device_inflate
 from compu_tpu_torch.formats.zstd import decode as zstd_decode_mod
 from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
 from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
 from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
 from compu_tpu_torch.kernels import deflate_v2, deflate_v3, inflate_dyn, inflate_lut, u32
 from compu_tpu_torch.kernels import inflate as inflate_mod
-from compu_tpu_torch.kernels import zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import inflate_spec, zstd_lit_decode, zstd_seq
 from compu_tpu_torch.kernels.adler_tiles import (
     adler32_device,
     adler32_partials_cuda,
@@ -168,6 +190,7 @@ from compu_tpu_torch.kernels.inflate_scan import (
     inflate_scan_cuda,
     inflate_scan_torch,
 )
+from compu_tpu_torch.kernels.inflate_spec import spec_scan_wave_cuda, spec_scan_wave_torch
 from compu_tpu_torch.kernels.lcp_match import (
     _adj_from_words,
     lcp_candidates_cuda,
@@ -215,11 +238,12 @@ PATHS = {
     "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
     "zstd_decode": ("huf_decode_lanes",),
     "gzip_decode": ("inflate_scan",),
+    "gzip_foreign_decode": ("inflate_spec",),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All eight kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All nine kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -498,6 +522,34 @@ def inflate_scan_work(args, kw, outs):
                       f"run (smoke_csrc/smem_chase.cu)"}
 
 
+def spec_scan_work(args, kw, outs):
+    """P4's chain: the longest lane's table reads, one for a literal and for
+    the EOB, two for a match (the lit/len read, then the distance read at
+    the offset it gives), each at least one shared-memory round trip, as
+    :func:`scan_work` (the kernel reads its tables through the read-only
+    cache, which is no faster). Bytes: the stream bytes the wave can read
+    (its 256 chunks and the most a token step reaches past the last, up to
+    the stream's end) and the two tables in; the lanes' five words and the
+    192 record slots out."""
+    comp, lit_lut, dist_lut = args
+    lanes, rec = outs
+    rec = rec.to(torch.int64)
+    took = (rec & 0x1FF) > 0
+    lits = (took & (((rec >> 9) & 1) == 1)).sum(0)
+    reads = int((2 * took.sum(0) - lits + (lanes[2] & 1)).max())
+    first = kw["wave_bit0"] // 8
+    last = min(-(-kw["total_bits"] // 8),
+               -(-(kw["wave_bit0"] + inflate_spec.WAVE_CHUNKS * inflate_spec.C
+                   + inflate_spec.MAX_PHASE + 48) // 8))
+    span = max(0, last - first)
+    smem = smem_round_trip()
+    return span + _nbytes(lit_lut, dist_lut, *outs), reads, {
+        "ops_ms": reads * smem["ns"] * 1e-6, "ns_per_op": smem["ns"], "stream_span_bytes": span,
+        "bound_note": f"the longest lane's dependent table reads x one shared-memory read, "
+                      f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
+                      f"run (smoke_csrc/smem_chase.cu)"}
+
+
 @functools.lru_cache(maxsize=1)
 def smem_round_trip(steps: int = 1 << 20) -> dict:
     """One dependent shared-memory read on this card: one thread chases
@@ -630,6 +682,12 @@ KERNELS = {
                                          ":166), decode_blocks_indexed_dyn (inflate_jax_dyn.py:206"
                                          ", :153) and decode_blocks_indexed (inflate_jax.py:204, "
                                          ":138), not TPU kernels"),
+    "inflate_spec": Kernel(spec_scan_wave_cuda, spec_scan_wave_torch,
+                           "compu_tpu_torch/csrc/inflate_spec.cu",
+                           "compu_tpu/kernels/inflate_spec.py:58", ("gzip_foreign_decode",),
+                           spec_scan_work,
+                           replaces_note="spec_scan_wave, a jax.lax.while_loop (inflate_spec.py"
+                                         ":162) over its step (:76), not a TPU kernel"),
 }
 # A twin whose call for the equality check takes this long or more (P1's
 # and P2's, Python loops of tiny launches a step) is timed by that call on
@@ -1059,6 +1117,192 @@ def gzip_decode_stage_ms(stream: bytes, index) -> dict:
     times["rest"] = total - sum(times.values())
     times["total"] = total
     times["doubling_rounds"] = dict(rounds)
+    return times
+
+
+def gzip_stream(data: bytes) -> bytes:
+    """``data`` as stdlib zlib writes a level-6 gzip stream: no index."""
+    co = zlib.compressobj(6, zlib.DEFLATED, 31)
+    return co.compress(data) + co.flush()
+
+
+def foreign_decode(stream: bytes, size: int, device=None):
+    """One-shot ``decoder.Interface.zlib_device(ZlibMode.Auto)`` decode of
+    ``stream`` into a buffer of ``size`` + 16 bytes; returns (the Decode
+    result, the bytes it wrote)."""
+    out = bytearray(size + 16)
+    res = decoder.Interface.zlib_device(ZlibMode.Auto, device=device).decode(stream, out)
+    return res, bytes(out[:len(out) - res.output_remain])
+
+
+@contextlib.contextmanager
+def recorded_waves():
+    """While open, the foreign decode runs as usual, and the dict it yields
+    gets its block headers (``blocks``: (bit, kind, body bit) each), its
+    wave count, the first wave of the first dynamic block and the last
+    wave (``first``, ``last``: (args, kw) of P4's call, copies)."""
+    kept = {"blocks": [], "waves": 0}
+    parse, scan = device_inflate.parse_block_header_at, device_inflate.spec_scan_wave
+
+    def parsing(data, bit):
+        out = parse(data, bit)
+        kept["blocks"].append((bit, out[0], out[3]))
+        return out
+
+    def scanning(comp, lit_lut, dist_lut, wave_bit0, total_bits):
+        kept["waves"] += 1
+        call = ((comp, lit_lut.clone(), dist_lut.clone()),
+                dict(wave_bit0=wave_bit0, total_bits=total_bits))
+        kind, body_bit = kept["blocks"][-1][1:]
+        if "first" not in kept and kind == 2 and wave_bit0 == body_bit:
+            kept["first"] = call
+        kept["last"] = call
+        return scan(comp, lit_lut, dist_lut, wave_bit0, total_bits)
+
+    device_inflate.parse_block_header_at = parsing
+    device_inflate.spec_scan_wave = scanning
+    try:
+        yield kept
+    finally:
+        device_inflate.parse_block_header_at = parse
+        device_inflate.spec_scan_wave = scan
+
+
+@contextlib.contextmanager
+def counted_rounds():
+    """While open, the dict it yields counts the resolve's doubling rounds."""
+    rounds = {"rounds": 0}
+    double = inflate_spec._double
+
+    def counting(root):
+        rounds["rounds"] += 1
+        return double(root)
+
+    inflate_spec._double = counting
+    try:
+        yield rounds
+    finally:
+        inflate_spec._double = double
+
+
+def gzip_foreign_decode_path(corpus: bytes):
+    """The corpus's stdlib gzip stream decoded on the card through
+    ``zlib_device``: one warm decode, whose waves are recorded, then three
+    timed; each must give the corpus with status Finished. Then the stream
+    with a byte flipped inside its first dynamic block must not finish, the
+    stream cut in half must return NeedInput, the first 1 MiB's own stream
+    must decode to the same bytes on the CPU and the card, and P4 is held
+    to its plain version on the first wave of the first dynamic block and on
+    the stream's last wave. Returns the measurements and P4's kernel report
+    entry."""
+    stream = gzip_stream(corpus)
+    log(f"gzip_foreign_decode: stdlib gzip level 6 of the corpus, {len(stream)} bytes")
+    dev = torch.device("cuda")
+
+    def decodes():
+        with recorded_waves() as kept, counted_rounds() as rounds:
+            runs = [foreign_decode(stream, len(corpus))]
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(foreign_decode(stream, len(corpus)))
+            times.append(time.perf_counter() - t0)
+        return runs, times, kept, rounds["rounds"]
+
+    (runs, times, kept, rounds), launches = run_path("gzip_foreign_decode", decodes)
+    for res, out in runs:
+        if (res.status is not DecodeStatus.Finished or res.input_remain or out != corpus):
+            raise AssertionError(f"a foreign decode of the corpus's gzip stream failed: {res}")
+    kinds = collections.Counter(("stored", "fixed", "dynamic")[k] for _, k, _ in kept["blocks"])
+    if launches["inflate_spec"] != kept["waves"] * len(runs):
+        raise AssertionError(f"{launches['inflate_spec']} P4 launches in {len(runs)} decodes "
+                             f"of {kept['waves']} waves")
+    log(f"gzip_foreign_decode: 4 card decodes give the corpus; blocks {dict(kinds)}; "
+        f"{kept['waves']} P4 launches a decode; {rounds} doubling rounds")
+
+    bits = [b for b, _, _ in kept["blocks"]]
+    i = next(i for i, (_, kind, _) in enumerate(kept["blocks"]) if kind == 2)
+    flip = (kept["blocks"][i][2] + bits[i + 1]) // 16
+    bad = bytearray(stream)
+    bad[flip] ^= 0xFF
+    res, _ = foreign_decode(bytes(bad), len(corpus))
+    if res.status is DecodeStatus.Finished:
+        raise AssertionError(f"a byte flipped at {flip}, in dynamic block {i}, still finished")
+    log(f"gzip_foreign_decode: a byte flipped at {flip} (dynamic block {i}) gives {res.status}")
+    res, _ = foreign_decode(stream[:len(stream) // 2], len(corpus))
+    if res.status is not DecodeStatus.NeedInput or res.input_remain:
+        raise AssertionError(f"the stream cut in half gave {res}, not NeedInput")
+    head = corpus[:1 << 20]
+    head_stream = gzip_stream(head)
+    t0 = time.perf_counter()
+    cpu = foreign_decode(head_stream, len(head), "cpu")
+    t_cpu = time.perf_counter() - t0
+    if cpu[1] != head or foreign_decode(head_stream, len(head), dev) != cpu:
+        raise AssertionError("the first 1 MiB's gzip stream decodes to other bytes on the CPU "
+                             "and the card")
+    log(f"gzip_foreign_decode: cpu == gpu decode of the first 1 MiB's stream "
+        f"(cpu run {t_cpu:.1f} s)")
+    kernel = check_kernels({("inflate_spec", "gzip_foreign_decode"): kept["first"]},
+                           ["inflate_spec"])
+    last = hold_to_twin("inflate_spec", "gzip_foreign_decode", KERNELS["inflate_spec"],
+                        *kept["last"])
+    chase = smem_round_trip()
+    for entry in (kernel[0], last):
+        entry["cycles_per_step"] = entry["ms"] * 1e6 / entry["ops"] * chase["cycles"] / chase["ns"]
+    kernel[0]["shape"] = "the first wave of the first dynamic block"
+    last["shape"] = "the stream's last wave: lanes past the stream's end start retired"
+    kernel[0]["other_shapes"] = [last]
+    sec = statistics.median(times)
+    res = {"path": "gzip_foreign_decode", "bytes": len(corpus), "compressed": len(stream),
+           "ratio": len(corpus) / len(stream), "median_s": sec, "runs_s": times,
+           "MBps": len(corpus) / sec / 1e6, "blocks": dict(kinds),
+           "p4_launches_per_decode": kept["waves"], "doubling_rounds": rounds,
+           "cpu_head_decode_s": t_cpu, "launches": launches, "runs_counted": len(runs)}
+    log("e2e " + json.dumps(res))
+    return res, kernel
+
+
+# The foreign decode's stages, by their names in device_inflate: the host's
+# header parse, the table build, the wave launches, the host walk, the
+# fetches, the resolve, the trailer check.
+FOREIGN_STAGES = ("parse_block_header_at", "build_foreign_luts", "spec_scan_wave",
+                  "_walk_wave", "_fetch", "resolve_foreign", "_check_trailer")
+
+
+def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
+    """One gzip_foreign_decode with each stage synchronised before and
+    after: ms per stage, the rest of the decode, and the doubling rounds."""
+    times = dict.fromkeys(FOREIGN_STAGES, 0.0)
+    saved = {name: getattr(device_inflate, name) for name in FOREIGN_STAGES}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(device_inflate, name, timed(name, fn))
+    try:
+        with counted_rounds() as rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = foreign_decode(stream, size)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in saved.items():
+            setattr(device_inflate, name, fn)
+    if res.status is not DecodeStatus.Finished:
+        raise AssertionError(f"the profiled foreign decode did not finish: {res}")
+    times["rest"] = total - sum(times.values())
+    times["total"] = total
+    times["doubling_rounds"] = rounds["rounds"]
     return times
 
 
@@ -1568,6 +1812,17 @@ def profile_main(corpus: bytes) -> None:
     res = {"path": "gzip_decode", "wall_ms": wall_ms,
            "stages_ms": gzip_decode_stage_ms(stream, index), **device_profile(decode)}
     log("profile " + json.dumps(res))
+    stream = gzip_stream(corpus)
+    decode = functools.partial(foreign_decode, stream, len(corpus))
+    decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {"path": "gzip_foreign_decode", "wall_ms": wall_ms,
+           "stages_ms": foreign_decode_stage_ms(stream, len(corpus)), **device_profile(decode)}
+    log("profile " + json.dumps(res))
     encode = functools.partial(zstd_frame, corpus, torch.device("cuda"))
     encode()
     torch.cuda.synchronize()
@@ -1625,20 +1880,23 @@ def main() -> None:
     kernels = check_kernels(
         kernel_inputs(torch.from_numpy(blocks[:16]).cuda(), torch.from_numpy(lens[:16]).cuda(),
                       torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args),
-        [name for name in KERNELS if name not in ("huf_decode_lanes", "inflate_scan")])
+        [name for name in KERNELS
+         if name not in ("huf_decode_lanes", "inflate_scan", "inflate_spec")])
     runs = {}
     runs["gzip_lex"], gz_stream, gz_index = gzip_lex_path(corpus)
     runs["gzip_decode"], p3_entry = gzip_decode_path(corpus, gz_stream, gz_index)
+    runs["gzip_foreign_decode"], p4_entry = gzip_foreign_decode_path(corpus)
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
     runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
     runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
-    kernels += p2_entry + p3_entry
+    kernels += p2_entry + p3_entry + p4_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
-        for p in ("gzip_lex", "gzip_decode", *HASH_PATHS, "zstd_device", "zstd_decode")))
+        for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", *HASH_PATHS, "zstd_device",
+                  "zstd_decode")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]

@@ -3,9 +3,10 @@
 The port's copy of ``compu_tpu/decoder.py``: ``Decoder`` owns one decode
 pipeline and exposes the raw layer (``decode``) and the convenience layer
 (``decode_vec``, ``decode_vec_full``, ``decode_buf``); ``Interface`` is a
-registry of pipeline factories with the port's constructors, of which
-there is one so far, ``zstd``. ``ByteVec`` and the status types are
-re-exported so a caller names only this module.
+registry of pipeline factories with the port's constructors,
+``zlib_device`` (any deflate, zlib or gzip stream, inflated on the device)
+and ``zstd``. ``ByteVec`` and the status types are re-exported so a caller
+names only this module.
 """
 
 from __future__ import annotations
@@ -115,6 +116,19 @@ class Interface:
         return Decoder(factory(*args, **kwargs))
 
     # -- convenience constructors -------------------------------------------
+    @staticmethod
+    def zlib_device(options=None, device=None) -> Decoder:
+        """Deflate, zlib or gzip streams from any encoder, inflated on
+        ``device`` (CUDA unless the caller passes ``"cpu"``, which runs the
+        kernels' plain versions): the 48-phase speculative chunk scan, one
+        launch of kernel P4 a wave, and the stream-global back-reference
+        resolution. ``options`` is a ``ZlibDecodeOptions`` or a
+        ``ZlibMode`` (default ``Auto``, which sniffs the framing); see
+        ``formats/deflate/device_inflate.py``."""
+        from .formats.deflate import device_inflate
+
+        return Decoder(device_inflate.DeviceDeflateDecoder(options, device=device))
+
     @staticmethod
     def zstd(options=None, device=None) -> Decoder:
         """Zstandard frames. ``options`` is a ``ZstdDecodeOptions``; by

@@ -1,6 +1,6 @@
-"""zlib/deflate encode options (the port's copy of the encode side of
+"""zlib/deflate options: the port's copy of
 ``compu_tpu/formats/deflate/options.py``, with only the fields the device
-encode reads)."""
+encode reads on the encode side, and the decoder's options."""
 
 from __future__ import annotations
 
@@ -10,11 +10,12 @@ import struct
 
 
 class ZlibMode(enum.Enum):
-    """Framing of an encoded stream."""
+    """Framing of a stream. ``Auto`` (decode only) sniffs zlib vs gzip."""
 
     Deflate = "deflate"  # raw RFC1951, no framing
     Zlib = "zlib"        # RFC1950: 2-byte header + adler32
     Gzip = "gzip"        # RFC1952: gzip header + crc32 + isize
+    Auto = "auto"        # decode-side header auto-detection
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,15 @@ class ZlibOptions:
     def __post_init__(self) -> None:
         if not 0 <= self.level <= 9:
             raise ValueError("compression level must be in 0..9")
+        if self.mode is ZlibMode.Auto:
+            raise ValueError("Auto mode is decode-only")
+
+
+@dataclasses.dataclass(frozen=True)
+class ZlibDecodeOptions:
+    """Decoder options: the framing to expect (``Auto`` sniffs it)."""
+
+    mode: ZlibMode = ZlibMode.Auto
 
 
 def stream_header(mode: ZlibMode, level: int) -> bytes:

@@ -95,6 +95,31 @@ def test_port_block_decoder_runs_stand_alone(tmp_path):
     assert "inflate-standalone-ok" in proc.stdout
 
 
+def test_port_zlib_device_runs_stand_alone(tmp_path):
+    """A stdlib gzip stream decoded by ``decoder.Interface.zlib_device`` on
+    kernel P4's plain version, in a fresh interpreter: it gives its input
+    and none of the forbidden packages is loaded."""
+    code = (
+        "import sys, zlib\n"
+        "from compu_tpu_torch import ZlibMode, decoder\n"
+        f"data = open({str(ROOT / 'tests' / 'data' / 'alice29.txt')!r}, 'rb').read()[:40000]\n"
+        "blob = zlib.compress(data, 6, wbits=31)\n"
+        "out = bytearray(len(data) + 16)\n"
+        "res = decoder.Interface.zlib_device(ZlibMode.Auto, device='cpu').decode(blob, out)\n"
+        "assert res.status is decoder.DecodeStatus.Finished, res\n"
+        "assert bytes(out[:len(data)]) == data and res.output_remain == 16\n"
+        "assert 'compu_tpu_torch.kernels.inflate_spec' in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('zlib-device-standalone-ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "zlib-device-standalone-ok" in proc.stdout
+
+
 def test_corpus_equals_bench(monkeypatch):
     """The port's corpus is bench.build_corpus's, byte for byte; the
     reference reads its text from the working directory, the copy from the
