@@ -4,6 +4,7 @@
     python3 ab_chains.py chains PARENT_DIR        # P1 and P2; PARENT_DIR: commit da778ed
     python3 ab_chains.py parse_cover PARENT_DIR   # B2; PARENT_DIR: commit f8599b4
     python3 ab_chains.py inflate_scan PARENT_DIR  # P3; PARENT_DIR: commit 21570d8
+    python3 ab_chains.py inflate_spec PARENT_DIR  # P4; PARENT_DIR: commit bac9186
 
 ``PARENT_DIR`` holds a checkout of the commit named (``git archive``
 unpacked). The earlier kernel is built from it into a library of its own
@@ -50,6 +51,28 @@ P3's bound (``chip_smoke.inflate_scan_work``). The copy floor
 on P3's grid, and does no work. Both kernels' loops that read shared
 memory go to ``ab_inflate_scan_sass.txt``.
 
+``inflate_spec``: ``inflate_spec.cu`` of bac9186 is P4 before its
+redesign, the block's 15-bit direct tables (2 x 128 KiB) read through the
+read-only cache and all 192 record slots of every lane written. On
+``chip_smoke.py``'s two gzip_foreign_decode waves (stdlib zlib's level-6
+gzip stream of the 16 MB corpus, decoded once on the card with its waves
+recorded: the first wave of the first dynamic block, and the last wave)
+the earlier design is fed its 15-bit tables (``inflate_lut._lit_lut_block``
+and ``_dist_lut_block`` at 15 bits, the tables its decode built) and this
+tree's its compact tables; both are held to the plain version on the
+defined records (the earlier design's records with outlen > 0, in slot
+order, against the first ``nrec`` slots) and the lanes exactly, then
+timed in turns, parent, this tree at 64, 128 and 256 lanes a CUDA block
+(the kernel's 128, and copies of its source built with its
+``kBlockLanes`` edited), the same back, parent, beside P4's bound
+(``chip_smoke.spec_scan_work``), with the cycles a table read of the
+longest lane; then each grid with every lane retired at its start
+(``total_bits`` 0: the copies of the tables and the span, the lanes'
+words and the launch); then a copy of this tree's kernel that reads the SM
+clock (``CLOCK_EDITS``): per warp, its loop's cycles and iterations, and
+the long-code walks. Each size's scan loop that reads shared memory goes
+to ``ab_inflate_spec_sass.txt``.
+
 The last line is one JSON object with the times.
 """
 
@@ -66,7 +89,14 @@ import torch
 
 import chip_smoke as cs
 from compu_tpu_torch import _build
-from compu_tpu_torch.kernels import inflate_scan, parse_cover, zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import (
+    inflate_lut,
+    inflate_scan,
+    inflate_spec,
+    parse_cover,
+    zstd_lit_decode,
+    zstd_seq,
+)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {
@@ -327,8 +357,162 @@ def inflate_scan_main(parent: pathlib.Path) -> None:
     print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "kernels": res}))
 
 
+def compact_records(rec: torch.Tensor) -> torch.Tensor:
+    """(RF, L) records with their outlen > 0 slots moved, in slot order, to
+    the front of each lane's column; 0 after them."""
+    emits = (rec & 0x1FF) > 0
+    pos = torch.cumsum(emits.to(torch.int64), 0) - 1
+    out = torch.zeros_like(rec)
+    lane = torch.arange(rec.shape[1], device=rec.device).expand_as(rec)
+    out[pos[emits], lane[emits]] = rec[emits]
+    return out
+
+
+# A copy of P4 that also records, per lane, the SM clock from the end of
+# its prologue to its loop's exit, its loop's iterations and its long-code
+# walks, in record slots 191, 190 and 189 (above every lane's nrec in the
+# waves it is run on).
+CLOCK_EDITS = (
+    ("  int step = 0, taken = 0;\n",
+     "  int step = 0, taken = 0;\n  const long long c0 = clock64();\n  int iters = 0, walks = 0;\n"),
+    ("    const uint32_t lo = __funnelshift_r(w0, w1, rel);\n",
+     "    ++iters;\n    const uint32_t lo = __funnelshift_r(w0, w1, rel);\n"),
+    ("      if ((a & 3) == 3) a = lit_long.walk(",
+     "      ++walks;\n      if ((a & 3) == 3) a = lit_long.walk("),
+    ("  bad = bad || over;  // record-slot overflow\n",
+     "  bad = bad || over;  // record-slot overflow\n  rec[189 * kLanes + lane] = walks;\n"
+     "  rec[190 * kLanes + lane] = iters;\n"
+     "  rec[191 * kLanes + lane] = static_cast<int>(clock64() - c0);\n"),
+)
+
+
+# The kernel's lanes a CUDA block, edited in copies of its source to time
+# the other sizes.
+BLOCK_LANES_LINE = "constexpr int kBlockLanes = 128;"
+
+
+def edited_spec(edits, name: str):
+    """P4 built from this tree's source with each (old, new) of ``edits``
+    made, called as ``spec_scan_wave_cuda``; and its library."""
+    src = (_build.CSRC / "inflate_spec.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise AssertionError(f"the edit does not fit the kernel: {old!r}")
+        src = src.replace(old, new)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"{name}.cu"
+    path.write_text(src)
+    lib = _build.build([path], f"lib{name}")
+    fn = ctypes.CDLL(str(lib)).compu_inflate_spec
+    fn.argtypes, fn.restype = list(_build._SIGNATURES["compu_inflate_spec"]), ctypes.c_int
+
+    def call(comp, tables, wave_bit0, total_bits):
+        lanes = torch.empty(5, inflate_spec.LANES, dtype=torch.int32, device=comp.device)
+        rec = torch.empty(inflate_spec.RF, inflate_spec.LANES, dtype=torch.int32,
+                          device=comp.device)
+        if fn(comp.data_ptr(), comp.numel() // 4, tables.data_ptr(), wave_bit0, total_bits,
+              lanes.data_ptr(), rec.data_ptr(), _build.stream_handle(comp)):
+            raise RuntimeError(f"{name} failed to launch")
+        return lanes, rec
+    return call, lib
+
+
+def warp_clock(lanes: torch.Tensor, rec: torch.Tensor) -> dict:
+    """From a clocked scan: per warp of 32 lanes, its loop's cycles (its
+    lanes leave the loop together) and iterations (its longest lane's);
+    the slowest warp's, their ratio, the median warp's, and the walks."""
+    if int(lanes[3].max()) >= 189:
+        raise AssertionError("a lane's records reach the clock probe's slots")
+    walks, iters, cycles = (rec[k].to(torch.int64).reshape(-1, 32) for k in (189, 190, 191))
+    wcyc, wit = cycles.max(1).values, iters.max(1).values
+    slow = int(torch.argmax(wcyc))
+    return {"slowest_warp": slow, "slowest_warp_cycles": int(wcyc[slow]),
+            "slowest_warp_iterations": int(wit[slow]),
+            "slowest_warp_cycles_per_iteration": int(wcyc[slow]) / max(int(wit[slow]), 1),
+            "slowest_warp_walks": int(walks[slow].sum()),
+            "median_warp_cycles": float(wcyc.double().median()),
+            "walks": int(walks.sum()), "lanes_with_a_walk": int((walks > 0).sum())}
+
+
+def inflate_spec_main(parent: pathlib.Path) -> None:
+    lib_parent = _build.build([parent / "compu_tpu_torch" / "csrc" / "inflate_spec.cu"],
+                              "libcompu_parent_p4")
+    scan = ctypes.CDLL(str(lib_parent)).compu_inflate_spec
+    scan.argtypes, scan.restype = [_P, _LL, _P, _P, _LL, _LL, _P, _P, _P], ctypes.c_int
+
+    def parent_design(comp, lit15, dist15, wave_bit0, total_bits):
+        lanes = torch.empty(5, inflate_spec.LANES, dtype=torch.int32, device=comp.device)
+        rec = torch.empty(inflate_spec.RF, inflate_spec.LANES, dtype=torch.int32,
+                          device=comp.device)
+        if scan(comp.data_ptr(), comp.numel() // 4, lit15.data_ptr(), dist15.data_ptr(),
+                wave_bit0, total_bits, lanes.data_ptr(), rec.data_ptr(),
+                _build.stream_handle(comp)):
+            raise RuntimeError("the parent's inflate_spec failed to launch")
+        return lanes, rec
+
+    trees = {128: (inflate_spec.spec_scan_wave_cuda, _build.build())}
+    for n in (64, 256):
+        trees[n] = edited_spec(((BLOCK_LANES_LINE, f"constexpr int kBlockLanes = {n};"),),
+                               f"compu_p4_lanes{n}")
+    clocked, _ = edited_spec(CLOCK_EDITS, "compu_p4_clocked")
+    with open(_build.BUILD_DIR / "ab_inflate_spec_sass.txt", "w") as fh:
+        for n, (_, lib) in sorted(trees.items()):
+            dump_loops(f"tree_{n}", lib, "inflate_spec_kernel", fh)
+    chase = cs.smem_round_trip()
+    ghz = chase["cycles"] / chase["ns"]
+    corpus = cs.build_corpus(cs.CORPUS_BYTES)
+    stream = cs.gzip_stream(corpus)
+    with cs.recorded_waves() as kept:
+        res, out = cs.foreign_decode(stream, len(corpus))
+    if out != corpus:
+        raise AssertionError(f"the foreign decode of the corpus's gzip stream failed: {res}")
+    res = []
+    for shape in ("first", "last"):
+        (comp, tables), kw = kept[shape]
+        lit, dist = (torch.from_numpy(np.asarray(x)).cuda() for x in kept[f"{shape}_lens"])
+        lit15 = inflate_lut._lit_lut_block(lit[None], 15)[0].contiguous()
+        dist15 = inflate_lut._dist_lut_block(dist[None], 15)[0].contiguous()
+        want = inflate_spec.spec_scan_wave_torch(comp, tables, **kw)
+        got_p = parent_design(comp, lit15, dist15, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_p[0], want[0])
+                and torch.equal(compact_records(got_p[1]), want[1])):
+            raise AssertionError(f"inflate_spec ({shape}): the parent's design differs from the "
+                                 f"plain version")
+        for n, (tree, _) in sorted(trees.items()):
+            got, held = cs.spec_defined(tree(comp, tables, **kw), want)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, held)):
+                raise AssertionError(f"inflate_spec ({shape}, {n} lanes a block): this tree's "
+                                     f"design differs from the plain version")
+        nbytes, reads, chain = cs.spec_scan_work((comp, tables), kw, want)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S * 1e3, chain["ops_ms"])
+        times = collections.defaultdict(list)
+        order = [("parent", parent_design, (comp, lit15, dist15))]
+        order += [(f"tree_{n}", tree, (comp, tables)) for n, (tree, _) in sorted(trees.items())]
+        for label, fn, args in order + order[::-1]:
+            times[label].append(cs.device_ms(fn, args, kw, k=50))
+        # The same grid with every lane retired at its start: the tables'
+        # and span's copies, the lanes' words and the launch.
+        for n, (tree, _) in sorted(trees.items()):
+            times[f"tree_{n}_retired"].append(
+                cs.device_ms(tree, (comp, tables), dict(kw, total_bits=0), k=50))
+        clock = warp_clock(*clocked(comp, tables, **kw))
+        entry = {"name": "inflate_spec", "shape": shape, **kw, "bytes": nbytes,
+                 "record_bytes": chain["record_bytes"], "longest_lane_reads": reads,
+                 "chain_ms": chain["ops_ms"], "bound_ms": bound,
+                 **{f"{k}_ms": v for k, v in times.items()},
+                 **{f"{k}_share_of_bound": [bound / t for t in v] for k, v in times.items()},
+                 **{f"{k}_cycles_per_read": [t * 1e6 * ghz / reads for t in v]
+                    for k, v in times.items() if not k.endswith("retired")},
+                 "clock": clock}
+        cs.log("ab " + json.dumps(entry))
+        res.append(entry)
+    print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "kernels": res}))
+
+
 MODES = {"chains": chains_main, "parse_cover": parse_cover_main,
-         "inflate_scan": inflate_scan_main}
+         "inflate_scan": inflate_scan_main, "inflate_spec": inflate_spec_main}
 
 
 def main() -> None:

@@ -17,8 +17,9 @@ Drives eight paths of the port over the 16 MB benchmark corpus
 * **gzip_foreign_decode**: the corpus compressed by stdlib ``zlib`` (level
   6, gzip framing: no index) and decoded through
   ``decoder.Interface.zlib_device(ZlibMode.Auto)``: each deflate block's
-  header parsed on the host, its 15-bit tables built on the card, then one
-  launch of the speculative 48-phase chunk scan (P4,
+  header parsed on the host, its code tables (12-bit primaries and the
+  canonical walk of longer codes) built in numpy and uploaded once, then
+  one launch of the speculative 48-phase chunk scan (P4,
   ``csrc/inflate_spec.cu``) a wave of 256 chunks of 512 bits, the true
   path walked on the host, and the stream-global expansion and pointer
   doubling in PyTorch;
@@ -86,7 +87,8 @@ failure:
    stream to decode to the same bytes on the CPU (P4's plain version) and
    the card; and P4 to equal its plain version exactly on two waves, the
    first wave of the first dynamic block and the stream's last wave, where
-   lanes retire on the stream's end;
+   lanes retire on the stream's end (its lanes' five words, and its records
+   below each lane's ``nrec``: only those are defined);
 5. run adler_device and require each block's adler32 to equal
    ``zlib.adler32`` and the zlib_hash path's metas;
 6. encode the corpus on zstd_device (one warm run, median of three) and
@@ -522,29 +524,40 @@ def inflate_scan_work(args, kw, outs):
                       f"run (smoke_csrc/smem_chase.cu)"}
 
 
+def spec_defined(got, want):
+    """P4's defined outputs: the lanes' five words, and each lane's record
+    slots below its ``nrec`` (``want``'s, which ``got``'s must equal in the
+    lanes); the slots past it are left unwritten by the kernel."""
+    defined = (torch.arange(inflate_spec.RF, device=want[1].device)[:, None]
+               < want[0][3][None, :])
+    return (got[0], got[1][defined]), (want[0], want[1][defined])
+
+
 def spec_scan_work(args, kw, outs):
     """P4's chain: the longest lane's table reads, one for a literal and for
     the EOB, two for a match (the lit/len read, then the distance read at
     the offset it gives), each at least one shared-memory round trip, as
-    :func:`scan_work` (the kernel reads its tables through the read-only
-    cache, which is no faster). Bytes: the stream bytes the wave can read
-    (its 256 chunks and the most a token step reaches past the last, up to
-    the stream's end) and the two tables in; the lanes' five words and the
-    192 record slots out."""
-    comp, lit_lut, dist_lut = args
+    :func:`scan_work` (a code longer than 12 bits adds its walk, which is
+    not counted). Bytes: the stream bytes the wave can read (its 256 chunks
+    and the most a token step reaches past the last, up to the stream's
+    end) and the block's tables in; the lanes' five words and the defined
+    records (sum of ``nrec`` x 4 B) out."""
+    comp, tables = args
     lanes, rec = outs
-    rec = rec.to(torch.int64)
-    took = (rec & 0x1FF) > 0
-    lits = (took & (((rec >> 9) & 1) == 1)).sum(0)
-    reads = int((2 * took.sum(0) - lits + (lanes[2] & 1)).max())
+    nrec = lanes[3].to(torch.int64)
+    took = torch.arange(inflate_spec.RF, device=rec.device)[:, None] < nrec[None, :]
+    lits = (took & (((rec.to(torch.int64) >> 9) & 1) == 1)).sum(0)
+    reads = int((2 * nrec - lits + (lanes[2] & 1)).max())
     first = kw["wave_bit0"] // 8
     last = min(-(-kw["total_bits"] // 8),
                -(-(kw["wave_bit0"] + inflate_spec.WAVE_CHUNKS * inflate_spec.C
                    + inflate_spec.MAX_PHASE + 48) // 8))
     span = max(0, last - first)
     smem = smem_round_trip()
-    return span + _nbytes(lit_lut, dist_lut, *outs), reads, {
+    records = 4 * int(nrec.sum())
+    return span + records + _nbytes(tables, lanes), reads, {
         "ops_ms": reads * smem["ns"] * 1e-6, "ns_per_op": smem["ns"], "stream_span_bytes": span,
+        "record_bytes": records,
         "bound_note": f"the longest lane's dependent table reads x one shared-memory read, "
                       f"{smem['cycles']:.2f} cycles ({smem['ns']:.3f} ns) each, measured in this "
                       f"run (smoke_csrc/smem_chase.cu)"}
@@ -631,7 +644,9 @@ class Kernel:
     is held to its twin (the first gives its report entry). ``work`` gives
     (bytes, ops) of one call, and for a kernel bound by a chain of dependent
     steps rather than by the INT32 rate a third item: the ops' time
-    (``ops_ms``) with its basis, which goes into the report."""
+    (``ops_ms``) with its basis, which goes into the report. ``defined``,
+    where set, maps (kernel outputs, twin outputs) to the parts of both
+    that are defined, which are compared; else all of them are."""
 
     kernel: object
     twin: object
@@ -640,6 +655,7 @@ class Kernel:
     paths: tuple
     work: object
     replaces_note: str | None = None
+    defined: object = None
 
 
 KERNELS = {
@@ -687,7 +703,8 @@ KERNELS = {
                            "compu_tpu/kernels/inflate_spec.py:58", ("gzip_foreign_decode",),
                            spec_scan_work,
                            replaces_note="spec_scan_wave, a jax.lax.while_loop (inflate_spec.py"
-                                         ":162) over its step (:76), not a TPU kernel"),
+                                         ":162) over its step (:76), not a TPU kernel",
+                           defined=spec_defined),
 }
 # A twin whose call for the equality check takes this long or more (P1's
 # and P2's, Python loops of tiny launches a step) is timed by that call on
@@ -794,8 +811,9 @@ def as_tuple(x):
 
 def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all seven are integer functions), both timed, and the
-    kernel's bound from the same inputs."""
+    (tolerance 0: all nine are integer functions; only the defined outputs,
+    ``Kernel.defined``), both timed, and the kernel's bound from the same
+    inputs."""
     kernel, twin = spec.kernel, spec.twin
     got = as_tuple(kernel(*args, **kw))
     torch.cuda.synchronize()
@@ -803,9 +821,10 @@ def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     want = as_tuple(twin(*args, **kw))
     torch.cuda.synchronize()
     twin_s = time.perf_counter() - t0
+    held = spec.defined(got, want) if spec.defined else (got, want)
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
-              for g, w in zip(got, want))
-    same = all(torch.equal(g, w) for g, w in zip(got, want))
+              for g, w in zip(*held))
+    same = all(torch.equal(g, w) for g, w in zip(*held))
     shapes = [tuple(a.shape) for a in args]
     if not same:
         raise AssertionError(f"{name} ({path}): kernel and plain twin disagree "
@@ -1138,26 +1157,27 @@ def foreign_decode(stream: bytes, size: int, device=None):
 @contextlib.contextmanager
 def recorded_waves():
     """While open, the foreign decode runs as usual, and the dict it yields
-    gets its block headers (``blocks``: (bit, kind, body bit) each), its
-    wave count, the first wave of the first dynamic block and the last
-    wave (``first``, ``last``: (args, kw) of P4's call, copies)."""
-    kept = {"blocks": [], "waves": 0}
+    gets its block headers (``blocks``: (bit, kind, body bit) each; ``lens``:
+    their code lengths), its wave count, the first wave of the first dynamic
+    block and the last wave (``first``, ``last``: (args, kw) of P4's call,
+    copies; ``first_lens``, ``last_lens``: their blocks' code lengths)."""
+    kept = {"blocks": [], "lens": [], "waves": 0}
     parse, scan = device_inflate.parse_block_header_at, device_inflate.spec_scan_wave
 
     def parsing(data, bit):
         out = parse(data, bit)
         kept["blocks"].append((bit, out[0], out[3]))
+        kept["lens"].append((out[1], out[2]))
         return out
 
-    def scanning(comp, lit_lut, dist_lut, wave_bit0, total_bits):
+    def scanning(comp, tables, wave_bit0, total_bits):
         kept["waves"] += 1
-        call = ((comp, lit_lut.clone(), dist_lut.clone()),
-                dict(wave_bit0=wave_bit0, total_bits=total_bits))
+        call = ((comp, tables.clone()), dict(wave_bit0=wave_bit0, total_bits=total_bits))
         kind, body_bit = kept["blocks"][-1][1:]
         if "first" not in kept and kind == 2 and wave_bit0 == body_bit:
-            kept["first"] = call
-        kept["last"] = call
-        return scan(comp, lit_lut, dist_lut, wave_bit0, total_bits)
+            kept["first"], kept["first_lens"] = call, kept["lens"][-1]
+        kept["last"], kept["last_lens"] = call, kept["lens"][-1]
+        return scan(comp, tables, wave_bit0, total_bits)
 
     device_inflate.parse_block_header_at = parsing
     device_inflate.spec_scan_wave = scanning
@@ -1264,9 +1284,9 @@ def gzip_foreign_decode_path(corpus: bytes):
 
 
 # The foreign decode's stages, by their names in device_inflate: the host's
-# header parse, the table build, the wave launches, the host walk, the
-# fetches, the resolve, the trailer check.
-FOREIGN_STAGES = ("parse_block_header_at", "build_foreign_luts", "spec_scan_wave",
+# header parse, the table build (in numpy, with its upload), the wave
+# launches, the host walk, the fetches, the resolve, the trailer check.
+FOREIGN_STAGES = ("parse_block_header_at", "build_foreign_tables", "spec_scan_wave",
                   "_walk_wave", "_fetch", "resolve_foreign", "_check_trailer")
 
 

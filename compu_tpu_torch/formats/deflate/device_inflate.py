@@ -7,14 +7,15 @@ decodes any deflate, zlib or gzip stream, with no side index:
 * on the host: the framing headers, each deflate block's header (bit by
   bit), the walk of each wave's exit phases along the true path, stored
   blocks, and the trailer checks (stdlib ``zlib.crc32``/``adler32``);
-* on the device: each block's 15-bit tables, the speculative 48-phase
-  chunk scan (kernel P4, ``kernels/inflate_spec.py``), one launch a wave
-  of 256 chunks, and the stream-global expansion and back-reference
-  resolution (the window crosses deflate blocks).
+* on the device: the speculative 48-phase chunk scan (kernel P4,
+  ``kernels/inflate_spec.py``), one launch a wave of 256 chunks, with each
+  block's code tables, built in numpy on the host and uploaded once a
+  block; and the stream-global expansion and back-reference resolution
+  (the window crosses deflate blocks).
 
-A wave costs one launch and two fetches: the lanes' exit phases, EOB bits
-and flags in one copy, then the true lanes' records, selected on the
-device. Like the reference, ``_pump`` decodes the whole staged input again
+A wave costs one launch and two fetches: the lanes' exit phases, EOB bits,
+flags and record counts in one copy, then the true lanes' defined records
+(their first ``nrec`` slots), gathered on the device. Like the reference, ``_pump`` decodes the whole staged input again
 on each call until the stream is complete, so feeding a stream in many
 chunks costs time quadratic in their number.
 
@@ -34,9 +35,10 @@ import torch
 
 from ...kernels.inflate_spec import (
     C,
+    LANES,
     PHASES,
     WAVE_CHUNKS,
-    build_foreign_luts,
+    build_foreign_tables,
     pad_stream,
     resolve_foreign,
     spec_scan_wave,
@@ -176,8 +178,7 @@ def device_inflate_raw(data: bytes, start_bit: int, device):
             out_pos += ln
             bit = (byte + 4 + ln) * 8
         else:
-            lit_lut, dist_lut = build_foreign_luts(torch.from_numpy(lit).to(dev),
-                                                   torch.from_numpy(dist).to(dev))
+            tables = build_foreign_tables(lit, dist, dev)
             # Scan 16 KiB of compressed bits a launch until the true path
             # reaches this block's EOB.
             wave_bit0 = body_bit
@@ -186,21 +187,24 @@ def device_inflate_raw(data: bytes, start_bit: int, device):
             while eob_bit < 0:
                 if wave_bit0 >= total_bits:
                     raise _Truncated
-                lanes, rec = spec_scan_wave(comp, lit_lut, dist_lut, wave_bit0, total_bits)
-                true_lanes, phase, eob_bit = _walk_wave(_fetch(lanes[:3]), wave_bit0,
+                lanes, rec = spec_scan_wave(comp, tables, wave_bit0, total_bits)
+                exit_rel, eob_bits, flags, nrec = _fetch(lanes[:4])
+                true_lanes, phase, eob_bit = _walk_wave((exit_rel, eob_bits, flags), wave_bit0,
                                                         total_bits, phase)
-                sel = torch.tensor(true_lanes, dtype=torch.int64, device=dev)
-                recs = _fetch(rec.index_select(1, sel)).T   # (true lanes, RF)
-                ol = recs & 0x1FF
-                keep = ol > 0
-                ol_f = ol[keep]
-                if ol_f.size:
-                    starts = out_pos + np.concatenate([[0], np.cumsum(ol_f)[:-1]])
-                    tok_outlen.append(ol_f)
-                    tok_islit.append((recs[keep] >> 9) & 1)
-                    tok_payload.append((recs[keep] >> 10) & 0x7FFF)
-                    tok_start.append(starts.astype(np.int64))
-                    out_pos += int(ol_f.sum())
+                # Their records: slot k of lane l is rec[k, l], k < nrec[l].
+                n = nrec[true_lanes].astype(np.int64)
+                total = int(n.sum())
+                if total:
+                    first = np.cumsum(n) - n
+                    slot = np.arange(total) - np.repeat(first, n)
+                    sel = slot * LANES + np.repeat(np.asarray(true_lanes, np.int64), n)
+                    recs = _fetch(rec.reshape(-1)[torch.from_numpy(sel).to(dev)])
+                    ol = recs & 0x1FF
+                    tok_outlen.append(ol)
+                    tok_islit.append((recs >> 9) & 1)
+                    tok_payload.append((recs >> 10) & 0x7FFF)
+                    tok_start.append(out_pos + np.cumsum(ol, dtype=np.int64) - ol)
+                    out_pos += int(ol.sum())
                 wave_bit0 += WAVE_CHUNKS * C
             bit = eob_bit
         if bfinal:

@@ -1,6 +1,7 @@
 """The foreign-stream inflate's device pieces against the JAX reference, on
 the CPU: the plain version of kernel P4 (``spec_scan_wave_torch``) lane by
-lane against the reference's ``spec_scan_wave``, the 15-bit tables, the
+lane against the reference's ``spec_scan_wave``, the block's code tables
+(their lookup against the reference's 15-bit tables on every window), the
 stream-global ``resolve_foreign`` and the host ``parse_block_header_at``.
 Marked ``gpu``: P4 against its plain version on the card.
 
@@ -8,15 +9,21 @@ The waves: the first wave of alice29's gzip fixture, of a fixed-Huffman
 block and of a Huffman-only stream whose 1-bit codes overflow the lanes'
 record slots; the last wave of alice29's fixture, where lanes retire on
 ``total_bits``; and seeded numpy random bytes under the fixed tables
-(invalid literal/length codes 286/287 and distance codes 30/31). Every
-output is integers, so every comparison is exact (tolerance 0). Record
-slots that emit nothing hold 0 in the port and ``payload << 10`` in the
-reference, which reads only slots with outlen > 0: those are compared, and
-the port's other slots must be 0.
+(invalid literal/length codes 286/287 and distance codes 30/31), under
+complete codes with 13-, 14- and 15-bit codes (the tables' walk), and
+under incomplete, oversubscribed and one-symbol codes (the walk where no
+length fits, and the primary's invalid entry stands). Every
+output is integers, so every comparison is exact (tolerance 0). The port
+writes a lane's k-th record to slot k, and only slots below its ``nrec``
+are defined (the plain version writes 0 past them); the reference puts the
+token of step t at slot t*KF + j and ``payload << 10`` in slots that emit
+nothing, and reads only slots with outlen > 0: those, in slot order, must
+equal the port's first ``nrec`` slots.
 """
 
 import functools
 import pathlib
+import re
 import struct
 import sys
 import zlib
@@ -35,7 +42,28 @@ from compu_tpu_torch.kernels import inflate_spec  # noqa: E402
 
 DATA = pathlib.Path(__file__).parent / "data"
 TEXT = (DATA / "alice29.txt").read_bytes()
-WAVES = ("alice_first", "alice_last", "fixed", "random_fixed_tables", "overflow")
+# Seeded random bytes under the code lengths of ``table_case``'s incomplete,
+# oversubscribed and one-symbol codes: lanes where no length fits a window.
+RANDOM_TABLE_WAVES = ("random_incomplete", "random_oversubscribed", "random_one_symbol")
+WAVES = ("alice_first", "alice_last", "fixed", "random_fixed_tables", "overflow",
+         "random_long_codes") + RANDOM_TABLE_WAVES
+
+
+def long_code_lengths() -> tuple[np.ndarray, np.ndarray]:
+    """Complete lit/len and distance codes with 13-, 14- and 15-bit codes
+    (two, three and two of each), the other symbols shuffled from a seed:
+    lit/len 20 of 7 bits, 213 of 8 and 46 of 12 (286 and 287 unused);
+    distance 3 of 2 bits, one each of 3..8 and 14 of 12."""
+    rng = np.random.default_rng(11)
+    lit = np.zeros(288, np.int32)
+    lit[[65, 284]], lit[[200, 270, 285]], lit[[10, 280]] = 13, 14, 15
+    rest = rng.permutation(np.setdiff1d(np.arange(286), [65, 284, 200, 270, 285, 10, 280]))
+    lit[rest] = np.repeat([7, 8, 12], [20, 213, 46])
+    dist = np.zeros(30, np.int32)
+    order = rng.permutation(30)
+    dist[order] = np.repeat([2, 3, 4, 5, 6, 7, 8, 12, 13, 14, 15],
+                            [3, 1, 1, 1, 1, 1, 1, 14, 2, 3, 2])
+    return lit, dist
 
 
 def _fixed_stream() -> bytes:
@@ -61,27 +89,33 @@ def _first_wave(data: bytes, start_bit: int):
 
 
 def _last_wave(data: bytes, start_bit: int):
-    """The stream's last wave, recorded from a decode on the CPU."""
-    waves = []
-    scan = device_inflate.spec_scan_wave
+    """The stream's last wave and its block's code lengths, recorded from a
+    decode on the CPU."""
+    blocks, waves = [], []
+    build, scan = device_inflate.build_foreign_tables, device_inflate.spec_scan_wave
 
-    def recording(comp, lit_lut, dist_lut, wave_bit0, total_bits):
-        waves.append((lit_lut, dist_lut, wave_bit0))
-        return scan(comp, lit_lut, dist_lut, wave_bit0, total_bits)
+    def building(lit, dist, device):
+        blocks.append((lit, dist))
+        return build(lit, dist, device)
 
+    def recording(comp, tables, wave_bit0, total_bits):
+        waves.append((*blocks[-1], wave_bit0))
+        return scan(comp, tables, wave_bit0, total_bits)
+
+    device_inflate.build_foreign_tables = building
     device_inflate.spec_scan_wave = recording
     try:
         device_inflate.device_inflate_raw(data, start_bit, "cpu")
     finally:
+        device_inflate.build_foreign_tables = build
         device_inflate.spec_scan_wave = scan
     return data, *waves[-1]
 
 
 @functools.lru_cache(maxsize=None)
 def wave(name: str):
-    """(stream bytes, lit lengths or table, dist lengths or table, wave_bit0):
-    lengths (numpy) where the tables are built from a header, tables
-    (torch, CPU) for the recorded last wave."""
+    """(stream bytes, lit/len code lengths, distance code lengths, wave_bit0),
+    the lengths numpy."""
     gz = (DATA / "alice29.txt.gz").read_bytes()
     start = 8 * device_inflate._parse_gzip_header(gz)
     if name == "alice_first":
@@ -90,10 +124,15 @@ def wave(name: str):
         return _last_wave(gz, start)
     if name == "fixed":
         return _first_wave(_fixed_stream(), 0)
-    if name == "random_fixed_tables":
+    if name.startswith("random"):
         rng = np.random.default_rng(3)
-        return (rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(),
-                consts.FIXED_LITLEN_LENGTHS.astype(np.int32), np.full(30, 5, np.int32), 0)
+        if name in RANDOM_TABLE_WAVES:
+            lit, dist = table_case(name[len("random_"):])
+        elif name == "random_fixed_tables":
+            lit, dist = consts.FIXED_LITLEN_LENGTHS.astype(np.int32), np.full(30, 5, np.int32)
+        else:
+            lit, dist = long_code_lengths()
+        return rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(), lit, dist, 0
     if name == "overflow":
         return _first_wave(overflow_stream(), 16)
     raise KeyError(name)
@@ -101,10 +140,8 @@ def wave(name: str):
 
 def port_args(name: str, device="cpu"):
     data, lit, dist, wave_bit0 = wave(name)
-    if isinstance(lit, np.ndarray):
-        lit, dist = inflate_spec.build_foreign_luts(torch.from_numpy(lit), torch.from_numpy(dist))
-    return (inflate_spec.pad_stream(data, device), lit.to(device), dist.to(device),
-            wave_bit0, len(data) * 8)
+    return (inflate_spec.pad_stream(data, device),
+            inflate_spec.build_foreign_tables(lit, dist, device), wave_bit0, len(data) * 8)
 
 
 @pytest.fixture
@@ -128,14 +165,24 @@ def _ref_wave(ref_spec, name: str):
     import jax.numpy as jnp
 
     data, lit, dist, wave_bit0 = wave(name)
-    if isinstance(lit, np.ndarray):
-        lit_lut, dist_lut = ref_spec.build_foreign_luts(jnp.asarray(lit), jnp.asarray(dist))
-    else:
-        lit_lut, dist_lut = jnp.asarray(lit.numpy()), jnp.asarray(dist.numpy())
+    lit_lut, dist_lut = ref_spec.build_foreign_luts(jnp.asarray(lit), jnp.asarray(dist))
     outs = ref_spec.spec_scan_wave(ref_spec.make_comp12(np.frombuffer(data, np.uint8)),
                                    lit_lut, dist_lut, jnp.int32(wave_bit0),
                                    jnp.int32(len(data) * 8))
     return [np.asarray(o) for o in outs]
+
+
+def defined_records(rec: np.ndarray, nrec: np.ndarray) -> list[np.ndarray]:
+    """Each lane's first nrec slots of (RF, L) records."""
+    return [rec[:n, lane] for lane, n in enumerate(nrec)]
+
+
+def assert_same_scan(got, want) -> None:
+    """Two scans of the port's contract: lanes equal, records below nrec equal."""
+    (g_lanes, g_rec), (w_lanes, w_rec) = [[t.cpu() for t in x] for x in (got, want)]
+    assert torch.equal(g_lanes, w_lanes)
+    defined = torch.arange(inflate_spec.RF)[:, None] < w_lanes[3][None, :]
+    assert torch.equal(g_rec[defined], w_rec[defined])
 
 
 @pytest.mark.parametrize("name", WAVES)
@@ -145,12 +192,14 @@ def test_plain_scan_equals_reference(ref, name):
     lanes, rec = inflate_spec.spec_scan_wave(*port_args(name))
     for row, want in zip(lanes.numpy(), ref_lanes):
         np.testing.assert_array_equal(row, want.astype(np.int64))
-    got = rec.numpy().T.astype(np.int64)
-    want = ref_rec.astype(np.int64)
+    got = rec.numpy().astype(np.int64)
+    nrec = lanes[3].numpy()
+    want = ref_rec.astype(np.int64)                         # (L, RF), step slots
     emits = (want & 0x1FF) > 0
-    np.testing.assert_array_equal((got & 0x1FF) > 0, emits)
-    np.testing.assert_array_equal(got[emits], want[emits])
-    assert not got[~emits].any()
+    np.testing.assert_array_equal(emits.sum(1), nrec)
+    for g, w, e in zip(defined_records(got, nrec), want, emits):
+        np.testing.assert_array_equal(g, w[e])
+    assert not got[np.arange(inflate_spec.RF)[:, None] >= nrec[None, :]].any()
     flags = lanes[2].numpy()
     if name == "overflow":    # the block's first lane fills its 192 slots, then is bad
         assert flags[0] == 2 and lanes[3, 0] == 192
@@ -158,18 +207,103 @@ def test_plain_scan_equals_reference(ref, name):
         assert (flags & 2).any() and ((flags & 2) == 0).any()
     if name == "alice_last":  # lanes past the stream start retired
         assert (lanes[3].numpy() == 0).any() and (flags & 1).any()
+    if name == "random_long_codes":  # complete codes: no lane is bad
+        _, lit, dist, _ = wave(name)
+        assert (lit >= 13).sum() == 7 and (dist >= 13).sum() == 7
+        assert not (flags & 2).any() and int(lanes[3].sum()) > 100000
 
 
-def test_tables_equal_reference(ref):
+def _corpus_headers() -> list:
+    """The first block header of stdlib zlib's level-6 raw stream of each
+    quarter of the first MiB of the bench corpus (text, records, low-entropy
+    bytes, noise): (lit/len, distance) code lengths."""
+    from compu_tpu_torch.utils.corpus import build_corpus
+
+    corpus = build_corpus(1 << 20)
+    heads = []
+    for i in range(4):
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        raw = co.compress(corpus[i << 18:(i + 1) << 18]) + co.flush()
+        kind, lit, dist, _, _ = device_inflate.parse_block_header_at(raw, 0)
+        assert kind == 2
+        heads.append((lit, dist))
+    return heads
+
+
+def table_case(case: str) -> tuple[np.ndarray, np.ndarray]:
+    """Code lengths of each kind ``parse_block_header_at`` can return."""
+    rng = np.random.default_rng(5)
+    if case == "fixed_phantoms":
+        return consts.FIXED_LITLEN_LENGTHS.astype(np.int32), np.full(30, 5, np.int32)
+    if case == "long_codes":
+        return long_code_lengths()
+    if case == "incomplete":       # every length, fewer codes than the space holds
+        lit = np.where(rng.random(288) < 0.3, rng.integers(9, 16, 288), 0)
+        return lit.astype(np.int32), np.where(rng.random(30) < 0.5, 15, 0).astype(np.int32)
+    if case == "oversubscribed":   # more codes than the space holds, at every length
+        return (rng.integers(1, 16, 288).astype(np.int32),
+                rng.integers(1, 16, 30).astype(np.int32))
+    if case == "one_symbol":       # one code each, of 1 and of 15 bits
+        lit, dist = np.zeros(288, np.int32), np.zeros(30, np.int32)
+        lit[256], dist[29] = 15, 1
+        return lit, dist
+    if case == "no_distance_codes":
+        lit, _ = long_code_lengths()
+        return lit, np.zeros(30, np.int32)
+    if case == "alice":
+        return wave("alice_first")[1:3]
+    if case.startswith("corpus_"):
+        return _corpus_headers()[int(case[-1])]
+    raise KeyError(case)
+
+
+TABLE_CASES = ("fixed_phantoms", "long_codes", "incomplete", "oversubscribed", "one_symbol",
+               "no_distance_codes", "alice", "corpus_0", "corpus_1", "corpus_2", "corpus_3")
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_tables_equal_reference(ref, case):
+    """The tables' lookup (12-bit primary, then the walk over 13..15) equals
+    the reference's 15-bit direct tables on all 2^15 windows, both codes."""
     import jax.numpy as jnp
 
     ref_spec, _ = ref
-    for name in ("alice_first", "fixed", "overflow"):
-        _, lit, dist, _ = wave(name)
-        want = ref_spec.build_foreign_luts(jnp.asarray(lit), jnp.asarray(dist))
-        got = inflate_spec.build_foreign_luts(torch.from_numpy(lit), torch.from_numpy(dist))
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    lit, dist = table_case(case)
+    want = ref_spec.build_foreign_luts(jnp.asarray(lit), jnp.asarray(dist))
+    tables = inflate_spec.build_foreign_tables(lit, dist)
+    assert tables.dtype == torch.int32 and tuple(tables.shape) == (inflate_spec.TABLE_WORDS,)
+    windows = torch.arange(1 << inflate_spec.MAXB)
+    for is_dist, w in zip((False, True), want):
+        got = inflate_spec.lookup_foreign(tables, windows, dist=is_dist)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w).astype(np.int64))
+
+
+def test_tables_primaries_are_the_12_bit_tables():
+    """The primaries are the indexed inflate's 12-bit tables, built in
+    numpy here and in PyTorch there."""
+    from compu_tpu_torch.kernels import inflate_lut
+
+    for case in ("long_codes", "oversubscribed", "fixed_phantoms"):
+        lit, dist = table_case(case)
+        tables = inflate_spec.build_foreign_tables(lit, dist)
+        n = 1 << inflate_spec.PRIM_BITS
+        assert torch.equal(tables[inflate_spec.LIT_PRIM:inflate_spec.LIT_PRIM + n],
+                           inflate_lut._lit_lut_block(torch.from_numpy(lit)[None], 12)[0])
+        assert torch.equal(tables[inflate_spec.DIST_PRIM:inflate_spec.DIST_PRIM + n],
+                           inflate_lut._dist_lut_block(torch.from_numpy(dist)[None], 12)[0])
+
+
+def test_kernel_table_layout_matches():
+    """``csrc/inflate_spec.cu`` reads the tables at the module's offsets."""
+    src = (pathlib.Path(inflate_spec.__file__).parent.parent / "csrc" /
+           "inflate_spec.cu").read_text()
+    consts_cu = dict(re.findall(r"constexpr \w+ (k\w+) = (\d+);", src))
+    assert int(consts_cu["kPrimBits"]) == inflate_spec.PRIM_BITS
+    assert int(consts_cu["kTableWords"]) == inflate_spec.TABLE_WORDS
+    assert int(consts_cu["kRF"]) == inflate_spec.RF and int(consts_cu["kKF"]) == inflate_spec.KF
+    assert inflate_spec.CANON == 2 << inflate_spec.PRIM_BITS
+    assert inflate_spec.LIT_SYMS == inflate_spec.CANON + 2 * inflate_spec.MAXB * 3
+    assert inflate_spec.LANES % int(consts_cu["kBlockLanes"]) == 0
 
 
 def _mixed_stream() -> tuple[bytes, bytes]:
@@ -289,15 +423,17 @@ def test_truncated_header_raises_need_more_bits():
 
 
 def test_wave_argument_checks():
-    comp, lit, dist, _, total = port_args("fixed")
+    comp, tables, _, total = port_args("fixed")
     with pytest.raises(ValueError, match="int32"):
-        inflate_spec.spec_scan_wave(comp, lit.to(torch.int64), dist, 0, total)
+        inflate_spec.spec_scan_wave(comp, tables.to(torch.int64), 0, total)
+    with pytest.raises(ValueError, match="int32"):
+        inflate_spec.spec_scan_wave(comp, tables[:-4], 0, total)
     with pytest.raises(ValueError, match="multiple of 4"):
-        inflate_spec.spec_scan_wave(comp[:-1], lit, dist, 0, total)
+        inflate_spec.spec_scan_wave(comp[:-1], tables, 0, total)
     with pytest.raises(ValueError, match="must lie"):
-        inflate_spec.spec_scan_wave(comp, lit, dist, 0, 8 * comp.numel() + 1)
+        inflate_spec.spec_scan_wave(comp, tables, 0, 8 * comp.numel() + 1)
     with pytest.raises(ValueError, match="CUDA"):
-        inflate_spec.spec_scan_wave_cuda(comp, lit, dist, 0, total)
+        inflate_spec.spec_scan_wave_cuda(comp, tables, 0, total)
 
 
 @pytest.mark.gpu
@@ -308,18 +444,18 @@ def test_p4_equals_plain_gpu(cuda, name):
     got = inflate_spec.spec_scan_wave(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["inflate_spec"] == before + 1
-    want = inflate_spec.spec_scan_wave_torch(*args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert_same_scan(got, inflate_spec.spec_scan_wave_torch(*args))
 
 
 @pytest.mark.gpu
-def test_p4_at_every_wave_offset_gpu(cuda):
+@pytest.mark.parametrize("name", ("random_fixed_tables", "random_long_codes")
+                         + RANDOM_TABLE_WAVES)
+def test_p4_at_every_wave_offset_gpu(cuda, name):
     """Waves that start at every bit offset of a word, on random bytes
-    under the fixed tables: the window's funnel shifts at each shift."""
-    comp, lit, dist, _, total = port_args("random_fixed_tables", cuda)
+    under the fixed tables, long codes, and incomplete, oversubscribed and
+    one-symbol codes: the window's funnel shifts at each shift, each
+    block's staged span, and the kernel's own walk where no length fits."""
+    comp, tables, _, total = port_args(name, cuda)
     for wave_bit0 in range(0, 40):
-        got = inflate_spec.spec_scan_wave_cuda(comp, lit, dist, wave_bit0, total)
-        want = inflate_spec.spec_scan_wave_torch(comp, lit, dist, wave_bit0, total)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), wave_bit0
+        got = inflate_spec.spec_scan_wave_cuda(comp, tables, wave_bit0, total)
+        assert_same_scan(got, inflate_spec.spec_scan_wave_torch(comp, tables, wave_bit0, total))
