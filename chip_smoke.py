@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives eight paths of the port over the 16 MB benchmark corpus
+Drives nine paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
 4 groups of 16, for the DEFLATE paths):
 
@@ -37,7 +37,13 @@ Drives eight paths of the port over the 16 MB benchmark corpus
 * **zstd_decode**: the decode of that frame back to the corpus through
   ``decoder.Interface.zstd()`` (its default ``device_literals``), the
   frame blocks' 4-stream literal sections each one launch of P2
-  (``csrc/huf_lit_decode.cu``), the sequences and xxh64 on the host.
+  (``csrc/huf_lit_decode.cu``), the sequences and xxh64 on the host;
+* **brotli_device**: the brotli encode, ``Interface.brotli()`` (quality
+  9, window 22, Generic): 16 meta-blocks of 1 MiB, each one tokenizer
+  call (B1 and B2 at 2^20 lanes, depth 8, max_dist 2^20), its commands,
+  distance plan, context model, prefix codes and bits written by the
+  host's Python; the stream decoded back by ``decoder.Interface.brotli()``
+  (host code).
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
@@ -46,7 +52,8 @@ failure:
 1. report torch, CUDA and the card (name and power limit);
 2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
 3. hold each kernel to its plain twin at each of its paths' shapes (the
-   first 16 blocks; for B1 and B2 also the zstd path's first 1 MiB call;
+   first 16 blocks; for B1 and B2 also the zstd and brotli paths' first
+   1 MiB call;
    the adler tiles over the whole corpus in one launch, as adler_device
    makes it; P1 on the largest sequences section of the first MiB's zstd
    encode; P2, after phase 6, on the largest literal section of the
@@ -103,10 +110,21 @@ failure:
    Finished, the first 2 MiB's CPU frame to decode on the CPU (P2's plain
    version) to the bytes the card gives, and, after P2's check, the host
    literal route (``device_literals=False``) to give the corpus too;
-7. encode the first 4 blocks on the CPU (the twins) and on the card, on
+7. encode the corpus on brotli_device (one warm run, median of three) and
+   require (i) in every tokenizer call of the warm run, the tokens to tile
+   the call's bytes and every match's bytes to equal those at its
+   distance (at most 2^20), (ii) the stream to be the JAX reference's
+   (``BROTLI_BYTES``, ``BROTLI_SHA256``), (iii) the first 2 MiB encoded on
+   the CPU (the plain versions) to equal the card's stream, (iv) the
+   port's decoder to give the corpus back (one decode, timed), (v) the
+   system's libbrotlidec, where it loads through ctypes, to give it back
+   too (a line says whether it was found), and (vi) the one-shot
+   65,536-byte input with a repeat past WBITS=16's window to be written
+   with WBITS=16 and to decode;
+8. encode the first 4 blocks on the CPU (the twins) and on the card, on
    each DEFLATE encode path, and require equal bytes, metas and segment
    index;
-8. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
+9. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
 
 The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
@@ -121,14 +139,19 @@ chain's steps; P3's steps are its longest lane's table reads),
 P3's is one loop iteration, up to two tokens) and ``dynamic_smem_bytes``;
 P3's also carries its second shape under ``other_shapes``, and so does
 P4's (the last wave), whose entries carry ``cycles_per_step`` (its
-longest lane's table reads) but no SASS step.
+longest lane's table reads) but no SASS step. B1's and B2's entries are
+their gzip_lex shapes, with their zstd_device and brotli_device shapes
+under ``other_paths``, each with its path's launches.
 Without a CUDA device it fails and prints no result.
 
-``--profile`` runs none of that. It encodes the corpus on each encode path,
-decodes the gzip_lex stream, the stdlib gzip stream (gzip_foreign_decode)
-and the zstd frame, once with every stage synchronised before and after
-(ms per stage; for gzip_decode and gzip_foreign_decode also the doubling
-rounds), and once under ``torch.profiler``. From the profile
+``--profile`` runs none of that. It encodes the corpus on each encode path
+(brotli_device last), decodes the gzip_lex stream, the stdlib gzip stream
+(gzip_foreign_decode) and the zstd frame, once with every stage
+synchronised before and after (ms per stage; for gzip_decode and
+gzip_foreign_decode also the doubling rounds; for brotli_device the
+tokenizer calls, the commands, the distance plan with the histograms, the
+context model, the prefix codes' descriptions with the header, the body's
+emission and the rest), and once under ``torch.profiler``. From the profile
 it counts the CUDA kernels and copies, takes the union of their intervals
 as the device's busy time, and prints the idle share of the profiled wall
 time and the six kernels with the most device time, one JSON line a path.
@@ -142,6 +165,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import json
 import math
 import pathlib
@@ -158,6 +182,7 @@ import torch
 from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, DecodeStatus, ZlibMode
 from compu_tpu_torch import ZlibOptions, _build, decoder, make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
+from compu_tpu_torch.formats.brotli import encode as brotli_encode_mod
 from compu_tpu_torch.formats.deflate import device_inflate
 from compu_tpu_torch.formats.zstd import decode as zstd_decode_mod
 from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
@@ -231,6 +256,18 @@ ZSTD_OPTS = dict(device_literals=True, device_sequences=True)
 ZSTD_SPAN = 8 * ZSTD_BLOCK
 ZSTD_LCP = dict(depth=8, max_dist=(1 << 17) - 1, block_elems=ZSTD_SPAN)
 ZSTD_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
+# The brotli path: Interface.brotli at its defaults (quality 9, window 22,
+# Generic): one 1 MiB meta-block a tokenizer call (B1 at depth 8, wcap 32,
+# two sort keys, max_dist 2^20). Its stream of the corpus is the JAX
+# reference's: compu_tpu's BrotliStreamEncoder(quality=9, window_bits=22,
+# device_lz=True) over build_corpus(16 << 20) in 1 MiB chunks gives these
+# bytes, and so does the port's encode on the CPU
+# (tests/test_torch_brotli.py holds the two equal on smaller inputs).
+BROTLI_SPAN = brotli_encode_mod.TOKENIZER_SPAN
+BROTLI_LCP = dict(depth=8, max_dist=1 << 20, block_elems=BROTLI_SPAN)
+BROTLI_BYTES = 4_598_212
+BROTLI_SHA256 = "01501c025e6581e3c9bc5be5a645ced32be48fa860e5549e1898053d33ee5358"
+BROTLI_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
 
 # The kernels each path must launch.
 PATHS = {
@@ -241,6 +278,7 @@ PATHS = {
     "zstd_decode": ("huf_decode_lanes",),
     "gzip_decode": ("inflate_scan",),
     "gzip_foreign_decode": ("inflate_spec",),
+    "brotli_device": ("lcp_candidates", "parse_cover"),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
@@ -661,12 +699,12 @@ class Kernel:
 KERNELS = {
     "lcp_candidates": Kernel(lcp_candidates_cuda, lcp_candidates_torch,
                              "compu_tpu_torch/csrc/lcp_candidates.cu",
-                             "compu_tpu/kernels/lcp_match.py:169", ("gzip_lex", "zstd_device"),
-                             lcp_work),
+                             "compu_tpu/kernels/lcp_match.py:169",
+                             ("gzip_lex", "zstd_device", "brotli_device"), lcp_work),
     "parse_cover": Kernel(parse_cover_cuda, parse_cover_steps_torch,
                           "compu_tpu_torch/csrc/parse_cover.cu",
-                          "compu_tpu/kernels/parse_pallas.py:39", ("gzip_lex", "zstd_device"),
-                          parse_work,
+                          "compu_tpu/kernels/parse_pallas.py:39",
+                          ("gzip_lex", "zstd_device", "brotli_device"), parse_work,
                           replaces_note="with the jump targets and the > 0 around it: the whole "
                                         "of parse_cover_pallas (parse_pallas.py:64)"),
     "emit_pack": Kernel(emit_pack_cuda, emit_pack_torch,
@@ -731,7 +769,8 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
                   zstd_call: torch.Tensor, scan_args):
     """The inputs each kernel receives on its path: B1-B3 and B5 for the
     (B, N) blocks as the port's stages compute them, B4 the flat bytes, B1
-    and B2 for the zstd path's (1, 2^20) tokenizer call, P1 the recorded
+    and B2 for the zstd and brotli paths' (1, 2^20) tokenizer call of the
+    corpus's first MiB (max_dist 131,071 and 2^20), P1 the recorded
     ``scan_args``. Returns {(kernel, path): (args, kw)}."""
     B, N = blocks.shape
     ns = lens.to(torch.int64)
@@ -765,6 +804,13 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
                             zbd.reshape(1, -1).to(torch.int64), wcap=32)
     inputs["lcp_candidates", "zstd_device"] = ((zwords, zps32), dict(ZSTD_LCP))
     inputs["parse_cover", "zstd_device"] = ((zstep.reshape(-1),), {})
+    # The brotli tokenizer's first call: the same sort, B1 at max_dist 2^20.
+    bbl, bbd = lcp_candidates_torch(zwords, zps32, **BROTLI_LCP)
+    bstep, *_ = _post_match(zstd_call, torch.tensor([BROTLI_SPAN], device=zstd_call.device), zps,
+                            bbl.reshape(1, -1).to(torch.int64),
+                            bbd.reshape(1, -1).to(torch.int64), wcap=32)
+    inputs["lcp_candidates", "brotli_device"] = ((zwords, zps32), dict(BROTLI_LCP))
+    inputs["parse_cover", "brotli_device"] = ((bstep.reshape(-1),), {})
     for path, cfg in HASH_PATHS.items():
         hs, hps, *sw = _sort_stage(blocks, ns, wcap=cfg["wcap"])
         hwords = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in sw]))
@@ -1723,6 +1769,193 @@ def zstd_stage_ms(corpus: bytes) -> dict:
     return times
 
 
+def brotli_stream(data: bytes, device) -> bytes:
+    """One brotli stream of ``data`` through ``Interface.brotli()`` (quality
+    9, window 22, Generic) on ``device``."""
+    vec = ByteVec()
+    res = Interface.brotli(device=device).encode_vec_full(data, vec, EncodeOp.Finish)
+    if res.status.name != "Finished":
+        raise AssertionError(f"brotli encode did not finish: {res}")
+    return vec.data()
+
+
+@contextlib.contextmanager
+def brotli_tokenizers(call):
+    """While open, the brotli encoder makes its tokenizers from a subclass
+    whose calls go through ``call(tokenizer, data)`` (harness only)."""
+    made = brotli_encode_mod.DeviceTokenizer
+
+    class Wrapped(made):
+        def __call__(self, data):
+            return call(super().__call__, self, data)
+
+    brotli_encode_mod.DeviceTokenizer = Wrapped
+    try:
+        yield
+    finally:
+        brotli_encode_mod.DeviceTokenizer = made
+
+
+def brotli_decode(stream: bytes) -> bytes:
+    """One stream through the port's ``decoder.Interface.brotli()`` (host
+    code); raises unless it finishes with the whole stream consumed."""
+    vec = ByteVec()
+    res = decoder.Interface.brotli().decode_vec_full(stream, vec)
+    if res.is_error or res.status is not DecodeStatus.Finished or res.input_remain:
+        raise AssertionError(f"brotli decode did not finish: {res}")
+    return vec.data()
+
+
+def libbrotlidec():
+    """The system's libbrotli decoder through ctypes, or None where the
+    machine has none: it is an independent check of the stream, not a
+    part of the port."""
+    for name in ("libbrotlidec.so.1", "libbrotlidec.so"):
+        try:
+            lib = ctypes.CDLL(name)
+        except OSError:
+            continue
+        lib.BrotliDecoderDecompress.restype = ctypes.c_int
+        lib.BrotliDecoderDecompress.argtypes = [
+            ctypes.c_size_t, ctypes.c_char_p, ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p]
+        return lib
+    return None
+
+
+def libbrotli_decompress(lib, stream: bytes, size: int) -> bytes:
+    out_size = ctypes.c_size_t(size + 64)
+    out = ctypes.create_string_buffer(out_size.value)
+    if lib.BrotliDecoderDecompress(len(stream), stream, ctypes.byref(out_size), out) != 1:
+        raise AssertionError("libbrotlidec refuses the stream")
+    return out.raw[:out_size.value]
+
+
+def brotli_window_case() -> bytes:
+    """65,536 bytes of noise with b"QWERTY" at 0 and at 65,530: a one-shot
+    input written with WBITS=16, whose window (65,520) the repeat lies
+    past."""
+    data = bytearray(np.random.default_rng(5).integers(0, 256, 65_536, dtype=np.uint8).tobytes())
+    data[0:6] = data[65_530:65_536] = b"QWERTY"
+    return bytes(data)
+
+
+def brotli_device_path(corpus: bytes) -> dict:
+    """The brotli encode of the corpus on the card: one warm encode, whose
+    tokenizer calls are kept for check (i), then three timed; then (ii)
+    the stream is the reference's (length and sha256), (iii) the CPU's
+    stream of the first 2 MiB equals the card's, (iv) the port's decoder
+    gives the corpus back (one decode, timed), (v) so does the system's
+    libbrotlidec where it loads, and (vi) the WBITS=16 case decodes."""
+    dev = torch.device("cuda")
+    calls = []
+
+    def keep(tokenize, tokenizer, data):
+        out = tokenize(data)
+        calls.append((data, out, tokenizer.max_dist))
+        return out
+
+    def encodes():
+        with brotli_tokenizers(keep):
+            warm = brotli_stream(corpus, dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream = brotli_stream(corpus, dev)
+            times.append(time.perf_counter() - t0)
+        return warm, stream, times
+
+    (warm, stream, times), launches = run_path("brotli_device", encodes)
+    if warm != stream:
+        raise AssertionError("two encodes of the corpus gave different brotli streams")
+    if {m for _, _, m in calls} != {BROTLI_LCP["max_dist"]}:
+        raise AssertionError(f"tokenizers of max_dist {sorted({m for _, _, m in calls})}")
+    counts = [check_token_cover(d, t, m) for d, t, m in calls]
+    if sum(len(d) for d, _, _ in calls) != len(corpus):
+        raise AssertionError("the tokenizer calls do not cover the corpus")
+    log(f"brotli_device (i): {len(calls)} tokenizer calls tile their bytes, "
+        f"{sum(c[1] for c in counts)} matches of {sum(c[0] for c in counts)} tokens "
+        "copy equal bytes")
+    sha = hashlib.sha256(stream).hexdigest()
+    if (len(stream), sha) != (BROTLI_BYTES, BROTLI_SHA256):
+        raise AssertionError(f"(ii) the stream ({len(stream)} bytes, sha256 {sha}) is not the "
+                             f"reference's ({BROTLI_BYTES} bytes, sha256 {BROTLI_SHA256})")
+    log(f"brotli_device (ii): the stream is the reference's, {len(stream)} bytes, sha256 {sha}")
+    head = corpus[:BROTLI_CPU_BYTES]
+    t0 = time.perf_counter()
+    cpu = brotli_stream(head, "cpu")
+    t_cpu = time.perf_counter() - t0
+    if cpu != brotli_stream(head, dev):
+        raise AssertionError("(iii) the CPU's stream of the first 2 MiB differs from the card's")
+    log(f"brotli_device (iii): cpu == gpu stream of the first {len(head)} bytes "
+        f"(cpu run {t_cpu:.1f} s)")
+    t0 = time.perf_counter()
+    back = brotli_decode(stream)
+    t_dec = time.perf_counter() - t0
+    if back != corpus:
+        raise AssertionError("(iv) the port's decoder does not give the corpus back")
+    log(f"brotli_device (iv): the port's decoder gives the corpus back ({t_dec:.3f} s)")
+    lib = libbrotlidec()
+    log(f"brotli_device (v): libbrotlidec {'found' if lib else 'not found'} on this machine")
+    if lib and libbrotli_decompress(lib, stream, len(corpus)) != corpus:
+        raise AssertionError("(v) libbrotlidec decodes the stream to other bytes")
+    small = brotli_window_case()
+    blob = brotli_stream(small, dev)
+    if blob[0] & 1 or brotli_decode(blob) != small or (
+            lib and libbrotli_decompress(lib, blob, len(small)) != small):
+        raise AssertionError("(vi) the WBITS=16 stream does not decode to its input")
+    log(f"brotli_device (vi): the one-shot 65,536-byte input is written with WBITS=16 and "
+        f"decodes{' (libbrotlidec too)' if lib else ''}")
+    sec = statistics.median(times)
+    res = {"path": "brotli_device", "bytes": len(corpus), "tokenizer_calls": len(calls),
+           "compressed": len(stream), "ratio": len(corpus) / len(stream), "sha256": sha,
+           "median_s": sec, "runs_s": times, "MBps": len(corpus) / sec / 1e6,
+           "decode_s": t_dec, "decode_MBps": len(corpus) / t_dec / 1e6,
+           "libbrotlidec": bool(lib), "launches": launches, "runs_counted": 4}
+    log("e2e " + json.dumps(res))
+    return res
+
+
+# The brotli encode's host stages, by name in formats/brotli/encode.py.
+BROTLI_STAGES = ("_commands_from_tokens", "_plan_commands", "_context_model",
+                 "_write_meta_block_header", "_emit_body")
+
+
+def brotli_stage_ms(corpus: bytes) -> dict:
+    """One brotli_device encode with each stage synchronised before and
+    after: ms in the tokenizer calls, the commands, the distance plan with
+    the histograms, the context model, the prefix codes' descriptions with
+    the meta-block header, the body's emission, and the rest."""
+    times = dict.fromkeys(("tokenizer", *BROTLI_STAGES), 0.0)
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    saved = {n: getattr(brotli_encode_mod, n) for n in BROTLI_STAGES}
+    for n in BROTLI_STAGES:
+        setattr(brotli_encode_mod, n, timed(n, saved[n]))
+    try:
+        with brotli_tokenizers(lambda tokenize, _, data: timed("tokenizer", tokenize)(data)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            brotli_stream(corpus, torch.device("cuda"))
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n in BROTLI_STAGES:
+            setattr(brotli_encode_mod, n, saved[n])
+    times["rest"] = total - sum(times.values())
+    times["total"] = total
+    return times
+
+
 # The encode's stages, by the module whose globals the encode looks them up in.
 STAGES = (
     (deflate_v2, "sort_stage_lex"), (deflate_v2, "_sort_stage"),
@@ -1862,6 +2095,15 @@ def profile_main(corpus: bytes) -> None:
     res = {"path": "zstd_decode", "wall_ms": wall_ms, "stages_ms": zstd_decode_stage_ms(frame),
            **device_profile(decode)}
     log("profile " + json.dumps(res))
+    encode = functools.partial(brotli_stream, corpus, torch.device("cuda"))
+    encode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {"path": "brotli_device", "wall_ms": wall_ms, "stages_ms": brotli_stage_ms(corpus),
+           **device_profile(encode)}
+    log("profile " + json.dumps(res))
 
 
 def main() -> None:
@@ -1912,11 +2154,12 @@ def main() -> None:
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
     runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
     runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
+    runs["brotli_device"] = brotli_device_path(corpus)
     kernels += p2_entry + p3_entry + p4_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
         for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", *HASH_PATHS, "zstd_device",
-                  "zstd_decode")))
+                  "zstd_decode", "brotli_device")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]

@@ -8,19 +8,22 @@ its device loops; the zstd decoder decodes its 4-stream literal sections
 there, and ``BlockParallelDecoder`` inflates the port's own gzip/zlib block
 streams there, one lane per 128-byte segment of its index, and
 ``decoder.Interface.zlib_device`` inflates any deflate, zlib or gzip
-stream there, 48 speculative lanes a 512-bit chunk. The host layer
-(framing, the streaming state machines, checksum
+stream there, 48 speculative lanes a 512-bit chunk. The brotli encoder
+takes its LZ tokens from the same device stage and writes its prefix codes
+on the host; the brotli decoder, ``Detection`` and the stored format are
+host code. The host layer (framing, the streaming state machines, checksum
 algebra) is the port's own copy of ``compu_tpu``'s, under the same module
 names: the package imports nothing of ``compu_tpu`` and nothing of JAX.
 """
 
 from . import decoder, encoder
 from .buffer import Buffer
+from .detection import Detection
 from .formats.deflate.options import ZlibDecodeOptions, ZlibMode, ZlibOptions
 from .kernels.block_codec import make_block_encode_fn
 from .parallel.scheduler import BlockParallelDecoder, BlockParallelEncoder
 from .status import Decode, DecodeError, DecodeStatus
 
 __all__ = ["BlockParallelDecoder", "BlockParallelEncoder", "Buffer", "Decode", "DecodeError",
-           "DecodeStatus", "ZlibDecodeOptions", "ZlibMode", "ZlibOptions", "decoder", "encoder",
-           "make_block_encode_fn"]
+           "DecodeStatus", "Detection", "ZlibDecodeOptions", "ZlibMode", "ZlibOptions", "decoder",
+           "encoder", "make_block_encode_fn"]

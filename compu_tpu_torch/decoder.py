@@ -4,8 +4,8 @@ The port's copy of ``compu_tpu/decoder.py``: ``Decoder`` owns one decode
 pipeline and exposes the raw layer (``decode``) and the convenience layer
 (``decode_vec``, ``decode_vec_full``, ``decode_buf``); ``Interface`` is a
 registry of pipeline factories with the port's constructors,
-``zlib_device`` (any deflate, zlib or gzip stream, inflated on the device)
-and ``zstd``. ``ByteVec`` and the status types are re-exported so a caller
+``stored``, ``zlib_device`` (any deflate, zlib or gzip stream, inflated on
+the device), ``zstd`` and ``brotli``. ``ByteVec`` and the status types are re-exported so a caller
 names only this module.
 """
 
@@ -117,6 +117,13 @@ class Interface:
 
     # -- convenience constructors -------------------------------------------
     @staticmethod
+    def stored() -> Decoder:
+        """The stored format of ``encoder.Interface.stored``."""
+        from .formats import stored
+
+        return Decoder(stored.StoredDecoder())
+
+    @staticmethod
     def zlib_device(options=None, device=None) -> Decoder:
         """Deflate, zlib or gzip streams from any encoder, inflated on
         ``device`` (CUDA unless the caller passes ``"cpu"``, which runs the
@@ -138,3 +145,12 @@ class Interface:
         from .formats.zstd import pipeline
 
         return Decoder(pipeline.ZstdDecoder(options, device=device))
+
+    @staticmethod
+    def brotli(options=None) -> Decoder:
+        """Any brotli stream, decoded on the host (the reference's decoder
+        does no device work, so this one takes no ``device``). ``options``
+        is accepted and ignored, as the reference's."""
+        from .formats.brotli import pipeline
+
+        return Decoder(pipeline.BrotliDecoder(options))

@@ -3,7 +3,7 @@
 The port's copy of ``compu_tpu/encoder.py::Encoder``: the 3-op protocol
 (Process/Flush/Finish) and its convenience layer (``encode_vec``,
 ``encode_vec_full``). ``Interface`` holds the port's constructors,
-``zlib_device`` and ``zstd``. ``ByteVec`` and the status types are
+``stored``, ``zlib_device``, ``zstd`` and ``brotli``. ``ByteVec`` and the status types are
 re-exported so a caller names only this module.
 """
 
@@ -68,6 +68,14 @@ class Interface:
     """Constructors of the port's encoders."""
 
     @staticmethod
+    def stored() -> Encoder:
+        """The length-prefixed raw chunk format with an adler32 trailer,
+        which proves the state machine without compression."""
+        from .formats import stored
+
+        return Encoder(stored.StoredEncoder())
+
+    @staticmethod
     def zlib_device(options=None, block_size=None, device=None) -> Encoder:
         """DEFLATE (zlib/gzip/raw framing by ``options.mode``) with every
         256 KiB pipeline block encoded on ``device`` (CUDA by default)."""
@@ -86,3 +94,14 @@ class Interface:
         from .formats.zstd import pipeline
 
         return Encoder(pipeline.ZstdEncoder(options, device=device))
+
+    @staticmethod
+    def brotli(options=None, device=None) -> Encoder:
+        """Brotli streams over the device LZ stage, on ``device`` (CUDA by
+        default): the port has no host match finder. ``options`` is a
+        ``BrotliOptions`` (quality, mode, window_bits); each 1 MiB pipeline
+        block is one meta-block and one tokenizer call, its prefix codes
+        and bits written on the host."""
+        from .formats.brotli import pipeline
+
+        return Encoder(pipeline.BrotliEncoder(options, device=device))

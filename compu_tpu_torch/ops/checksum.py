@@ -1,8 +1,8 @@
 """Checksum algebra on the host (the port's copy of the part of
 ``compu_tpu/ops/checksum.py`` it calls).
 
-* adler32 is a pair of modular sums with a closed-form merge of two runs
-  (``adler32_combine``).
+* adler32 is a pair of modular sums (``adler32``, one numpy pass) with a
+  closed-form merge of two runs (``adler32_combine``).
 * crc32 is GF(2)-linear: a register is shifted past n zero bytes by one
   32x32 bit matrix (``zero_shift_operator``), so two runs merge with one
   matrix apply and an XOR (``crc32_combine``), and a register computed on a
@@ -35,6 +35,35 @@ def _make_crc_table() -> np.ndarray:
 
 
 CRC_TABLE = _make_crc_table()
+
+
+def adler32(data, value: int = 1) -> int:
+    """adler32 of ``data`` continuing from ``value`` (``zlib.adler32``): a
+    sum and a weighted sum a 64 KiB chunk, exact in float64 (the weighted
+    sum stays below 2^53), merged in int64."""
+    a = value & 0xFFFF
+    b = (value >> 16) & 0xFFFF
+    arr = np.frombuffer(bytes(data), dtype=np.uint8)
+    step = 1 << 16
+    m = (len(arr) // step) * step
+    if m:
+        grid = arr[:m].reshape(-1, step).astype(np.float64)
+        weights = np.arange(step, 0, -1, dtype=np.float64)
+        s = grid.sum(axis=1).astype(np.int64)
+        w = (grid @ weights).astype(np.int64)
+        # a before chunk k, reduced first so that b's sum stays in int64
+        a_prefix = (a + np.concatenate([[0], np.cumsum(s)[:-1]])) % ADLER_MOD
+        b = int((b + np.sum(step * a_prefix + w)) % ADLER_MOD)
+        a = int((a + s.sum()) % ADLER_MOD)
+    tail = arr[m:]
+    if len(tail):
+        n = len(tail)
+        chunk = tail.astype(np.float64)
+        s_t = int(chunk.sum())
+        w_t = int(np.dot(chunk, np.arange(n, 0, -1, dtype=np.float64)))
+        b = (b + n * a + w_t) % ADLER_MOD
+        a = (a + s_t) % ADLER_MOD
+    return ((b << 16) | a) & 0xFFFFFFFF
 
 
 def adler32_combine(adler1: int, adler2: int, len2: int) -> int:

@@ -120,6 +120,35 @@ def test_port_zlib_device_runs_stand_alone(tmp_path):
     assert "zlib-device-standalone-ok" in proc.stdout
 
 
+def test_port_brotli_runs_stand_alone(tmp_path):
+    """A brotli stream through ``Interface.brotli(device="cpu")`` and back
+    through ``decoder.Interface.brotli()``, and ``Detection`` and the
+    stored format, in a fresh interpreter: the data come back and none of
+    the forbidden packages is loaded."""
+    code = (
+        "import sys\n"
+        "from compu_tpu_torch import Detection, decoder\n"
+        "from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface\n"
+        f"data = open({str(ROOT / 'tests' / 'data' / 'alice29.txt')!r}, 'rb').read()[:40000]\n"
+        "for enc, dec in ((Interface.brotli(device='cpu'), decoder.Interface.brotli()),\n"
+        "                 (Interface.stored(), decoder.Interface.stored())):\n"
+        "    blob, out = ByteVec(), ByteVec()\n"
+        "    enc.encode_vec_full(data, blob, EncodeOp.Finish)\n"
+        "    res = dec.decode_vec_full(blob.data(), out)\n"
+        "    assert res.status is decoder.DecodeStatus.Finished and out.data() == data, res\n"
+        "    assert Detection.detect(blob.data()) is Detection.Unknown\n"
+        "assert 'compu_tpu_torch.formats.device_lz' in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('brotli-standalone-ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "brotli-standalone-ok" in proc.stdout
+
+
 def test_corpus_equals_bench(monkeypatch):
     """The port's corpus is bench.build_corpus's, byte for byte; the
     reference reads its text from the working directory, the copy from the
