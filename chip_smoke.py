@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives nine paths of the port over the 16 MB benchmark corpus
+Drives eleven paths of the port over the 16 MB benchmark corpus
 (``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
 4 groups of 16, for the DEFLATE paths):
 
@@ -43,7 +43,20 @@ Drives nine paths of the port over the 16 MB benchmark corpus
   call (B1 and B2 at 2^20 lanes, depth 8, max_dist 2^20), its commands,
   distance plan, context model, prefix codes and bits written by the
   host's Python; the stream decoded back by ``decoder.Interface.brotli()``
-  (host code).
+  (host code);
+* **gzip_fixed_v2**: the fixed-Huffman v2 route, ``make_block_encode_fn(
+  kernel="v2", segment_index=True)`` at level 6 through
+  ``BlockParallelEncoder`` (B1 and B2 at ``match_and_parse_batch``'s
+  defaults, depth 8; B3 packs the fixed-code fields), and its stream read
+  back with its index through ``BlockParallelDecoder()`` (P3 on the fixed
+  code's tables; the read-back is counted as ``gzip_fixed_v2_decode``);
+* **mesh_encode**: ``parallel/mesh.py`` on an NCCL process group of one
+  rank on the card: the sharded encode step over the 64 blocks in one
+  batch (B1, B2, B3), the stream-sharded zstd literal step over the
+  corpus's 128 blocks of 128 KiB x 4 streams, the lane-sharded crc32 on a
+  (1, 1) ("dp", "lane") mesh, then ``entry.dryrun_multichip(1)``. One card
+  runs a world of one: NCCL refuses two ranks on one card, so the
+  cross-card leg is not run here.
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
@@ -52,8 +65,10 @@ failure:
 1. report torch, CUDA and the card (name and power limit);
 2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
 3. hold each kernel to its plain twin at each of its paths' shapes (the
-   first 16 blocks; for B1 and B2 also the zstd and brotli paths' first
-   1 MiB call;
+   first 16 blocks, for B1-B3 also as the v2 route computes them and for
+   B1 also with the far tie, ``prefer_far``, under ``other_shapes``, its
+   time beside the nearer rule's; for B1 and B2 also the zstd and brotli
+   paths' first 1 MiB call;
    the adler tiles over the whole corpus in one launch, as adler_device
    makes it; P1 on the largest sequences section of the first MiB's zstd
    encode; P2, after phase 6, on the largest literal section of the
@@ -121,10 +136,21 @@ failure:
    too (a line says whether it was found), and (vi) the one-shot
    65,536-byte input with a repeat past WBITS=16's window to be written
    with WBITS=16 and to decode;
-8. encode the first 4 blocks on the CPU (the twins) and on the card, on
-   each DEFLATE encode path, and require equal bytes, metas and segment
-   index;
-9. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
+8. encode the corpus on gzip_fixed_v2 (one warm run, median of three) and
+   require zlib to give it back, every block to be a fixed-Huffman block,
+   and every read-back (one warm, three timed, 4 P3 launches each) to give
+   the corpus; run mesh_encode and require (i) the total to equal the sum
+   of the gathered lengths, the stream (the blocks and a final empty
+   stored block) to decode through stdlib zlib and through
+   ``decoder.Interface.zlib_device`` on the card, and the gathered adlers
+   to combine to the corpus's adler32; (ii) every literal stream to equal
+   the host writer's (``HufEncoder.encode_stream``, run meanwhile in 6
+   worker processes); (iii) each block's lane-sharded registers to fold to
+   its zlib.crc32; and ``dryrun_multichip(1)`` to pass;
+9. encode the first 4 blocks on the CPU (the twins) and on the card, on
+   each DEFLATE encode path (the first 16 on gzip_fixed_v2), and require
+   equal bytes, metas and segment index;
+10. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
 
 The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
@@ -141,12 +167,16 @@ P3's also carries its second shape under ``other_shapes``, and so does
 P4's (the last wave), whose entries carry ``cycles_per_step`` (its
 longest lane's table reads) but no SASS step. B1's and B2's entries are
 their gzip_lex shapes, with their zstd_device and brotli_device shapes
-under ``other_paths``, each with its path's launches.
+under ``other_paths``, each with its path's launches; B1-B3 also at
+gzip_fixed_v2's shapes there. Every entry also carries
+``launches_by_path``, its launches on each path that launched it.
 Without a CUDA device it fails and prints no result.
 
 ``--profile`` runs none of that. It encodes the corpus on each encode path
-(brotli_device last), decodes the gzip_lex stream, the stdlib gzip stream
-(gzip_foreign_decode) and the zstd frame, once with every stage
+(gzip_fixed_v2 and mesh_encode's sharded step among them, brotli_device
+last), decodes the gzip_lex and gzip_fixed_v2 streams with their index,
+the stdlib gzip stream (gzip_foreign_decode) and the zstd frame, once
+with every stage
 synchronised before and after (ms per stage; for gzip_decode and
 gzip_foreign_decode also the doubling rounds; for brotli_device the
 tokenizer calls, the commands, the distance plan with the histograms, the
@@ -168,6 +198,7 @@ import functools
 import hashlib
 import json
 import math
+import multiprocessing
 import pathlib
 import re
 import statistics
@@ -178,6 +209,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import init_device_mesh
 
 from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, DecodeStatus, ZlibMode
 from compu_tpu_torch import ZlibOptions, _build, decoder, make_block_encode_fn
@@ -201,9 +233,16 @@ from compu_tpu_torch.kernels.block_codec import (
     DEV_KEYS,
     DEV_STRIDE,
     DEV_WCAP,
+    HOST_DEPTH,
     _encode_blocks_batched,
 )
-from compu_tpu_torch.kernels.deflate_v2 import _post_match, _sort_stage, match_and_parse_batch
+from compu_tpu_torch.kernels.deflate_v2 import (
+    _fixed_pack_inputs,
+    _post_match,
+    _sort_stage,
+    encode_blocks_fixed_v2,
+    match_and_parse_batch,
+)
 from compu_tpu_torch.kernels.deflate_v3 import (
     _build_tables,
     _pack_inputs,
@@ -231,7 +270,11 @@ from compu_tpu_torch.kernels.match_candidates import (
 from compu_tpu_torch.kernels.parse_cover import parse_cover_cuda, parse_cover_steps_torch
 from compu_tpu_torch.kernels.zstd_lit_decode import huf_decode_lanes_cuda, huf_decode_lanes_torch
 from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_torch
+from compu_tpu_torch.entry import TERM, dryrun_multichip, free_port
+from compu_tpu_torch.formats.zstd.huff import HufEncoder
+from compu_tpu_torch.ops import checksum
 from compu_tpu_torch.ops.xxhash import xxh64
+from compu_tpu_torch.parallel import mesh as pmesh
 from compu_tpu_torch.parallel import scheduler
 from compu_tpu_torch.parallel.scheduler import BlockIndex, BlockState
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
@@ -268,6 +311,15 @@ BROTLI_LCP = dict(depth=8, max_dist=1 << 20, block_elems=BROTLI_SPAN)
 BROTLI_BYTES = 4_598_212
 BROTLI_SHA256 = "01501c025e6581e3c9bc5be5a645ced32be48fa860e5549e1898053d33ee5358"
 BROTLI_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
+# The v2 route: make_block_encode_fn(kernel="v2") at LEVEL matches with
+# match_and_parse_batch's defaults (wcap 32, two sort keys, stride 1) at
+# depth min(host ladder depth, 8), and writes fixed-Huffman blocks only.
+V2_DEPTH = min(HOST_DEPTH[LEVEL], 8)
+V2_LCP = dict(depth=V2_DEPTH, max_dist=MAX_DIST, block_elems=BLOCK)
+V2_CPU_BLOCKS = 16  # the head the CPU encodes for its bytes check
+# The mesh path's zstd literal step: the corpus as 128 frame blocks of
+# 128 KiB, 4 streams each, under one Huffman table from its byte counts.
+LIT_BLOCK = 1 << 17
 
 # The kernels each path must launch.
 PATHS = {
@@ -279,6 +331,9 @@ PATHS = {
     "gzip_decode": ("inflate_scan",),
     "gzip_foreign_decode": ("inflate_spec",),
     "brotli_device": ("lcp_candidates", "parse_cover"),
+    "gzip_fixed_v2": ("lcp_candidates", "parse_cover", "emit_pack"),
+    "gzip_fixed_v2_decode": ("inflate_scan",),
+    "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack"),
 }
 
 # The card's rates the bounds are taken against: the H100 SXM's device
@@ -296,6 +351,7 @@ COLD_BYTES = 100 << 20
 # and of one B5 candidate at each hash shape (match_candidate_cost), read
 # from their SASS once the library is built.
 LCP_COST: dict = {}
+LCP_FAR_COST: dict = {}
 MATCH_COST: dict = {}
 # This script's own CUDA sources, built beside the package's kernels: the
 # shared-memory chase that measures P1's, P2's and P3's bound unit.
@@ -345,13 +401,16 @@ def sass_counts(lib_path, symbol: str) -> collections.Counter:
 
 def lcp_candidate_cost(lib_path) -> dict:
     """What one B1 candidate costs in the compiled kernel: the instructions
-    that ``lcp_kernel<16>`` has more than ``lcp_kernel<8>``, both unrolled,
-    over the 64 candidates a thread weighs more (4 lanes x 2 directions x
-    8 depths), so that staging, ``adj`` and the epilogue cancel. ``cost``
-    is the time of one candidate in INT32-lane issues (64 per SM and
-    clock): the busiest of the ALU, the FMA pipe, the XU (at a quarter of
-    the rate) and issue (at twice the rate)."""
-    return _cost_per_candidate(lib_path, "lcp_kernelILi16E", "lcp_kernelILi8E", 64)
+    that ``lcp_kernel<16, FAR>`` has more than ``lcp_kernel<8, FAR>``, both
+    unrolled, over the 64 candidates a thread weighs more (4 lanes x 2
+    directions x 8 depths), so that staging, ``adj`` and the epilogue
+    cancel; the nearer rule's (FAR false) and, under ``far``, the far
+    tie's. ``cost`` is the time of one candidate in INT32-lane issues (64
+    per SM and clock): the busiest of the ALU, the FMA pipe, the XU (at a
+    quarter of the rate) and issue (at twice the rate)."""
+    cost = _cost_per_candidate(lib_path, "lcp_kernelILi16ELb0E", "lcp_kernelILi8ELb0E", 64)
+    cost["far"] = _cost_per_candidate(lib_path, "lcp_kernelILi16ELb1E", "lcp_kernelILi8ELb1E", 64)
+    return cost
 
 
 def _cost_per_candidate(lib_path, more: str, fewer: str, extra: int) -> dict:
@@ -453,8 +512,8 @@ def lcp_work(args, kw, outs):
     """Per lane and direction, the candidates until the running min of
     ``adj`` is 0 (a candidate past it has length 0 and cannot win; the one
     that finds the 0 counts), each at the compiled kernel's cost
-    (``LCP_COST``, from its SASS), and 3 ops per window word for ``adj``
-    (xor, leading zeros, accumulate)."""
+    (``LCP_COST``, from its SASS; the far tie's under ``prefer_far``), and
+    3 ops per window word for ``adj`` (xor, leading zeros, accumulate)."""
     words, ps = args
     W, n = words.shape
     be = kw["block_elems"]
@@ -467,7 +526,8 @@ def lcp_work(args, kw, outs):
         needed += int((mb > 0).sum()) + int((mf > 0).sum())
         mb = torch.minimum(mb, torch.roll(adj, d))
         mf = torch.minimum(mf, torch.where(lpos >= be - (d + 1), 0, torch.roll(adj, -(d + 1))))
-    return _nbytes(words, ps, *outs), needed * LCP_COST["cost"] + 3 * W * n
+    cost = LCP_COST["far"] if kw.get("prefer_far") else LCP_COST
+    return _nbytes(words, ps, *outs), needed * cost["cost"] + 3 * W * n
 
 
 def parse_work(args, kw, outs):
@@ -700,16 +760,19 @@ KERNELS = {
     "lcp_candidates": Kernel(lcp_candidates_cuda, lcp_candidates_torch,
                              "compu_tpu_torch/csrc/lcp_candidates.cu",
                              "compu_tpu/kernels/lcp_match.py:169",
-                             ("gzip_lex", "zstd_device", "brotli_device"), lcp_work),
+                             ("gzip_lex", "zstd_device", "brotli_device", "gzip_fixed_v2"),
+                             lcp_work),
     "parse_cover": Kernel(parse_cover_cuda, parse_cover_steps_torch,
                           "compu_tpu_torch/csrc/parse_cover.cu",
                           "compu_tpu/kernels/parse_pallas.py:39",
-                          ("gzip_lex", "zstd_device", "brotli_device"), parse_work,
+                          ("gzip_lex", "zstd_device", "brotli_device", "gzip_fixed_v2"),
+                          parse_work,
                           replaces_note="with the jump targets and the > 0 around it: the whole "
                                         "of parse_cover_pallas (parse_pallas.py:64)"),
     "emit_pack": Kernel(emit_pack_cuda, emit_pack_torch,
                         "compu_tpu_torch/csrc/emit_pack.cu",
-                        "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex",), emit_work),
+                        "compu_tpu/kernels/emit_pallas.py:32", ("gzip_lex", "gzip_fixed_v2"),
+                        emit_work),
     "match_candidates": Kernel(match_candidates_cuda, match_candidates_torch,
                                "compu_tpu_torch/csrc/match_candidates.cu",
                                "compu_tpu/kernels/match_pallas.py:50", tuple(HASH_PATHS),
@@ -768,7 +831,9 @@ def split_blocks(data: bytes, bs: int = BLOCK):
 def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
                   zstd_call: torch.Tensor, scan_args):
     """The inputs each kernel receives on its path: B1-B3 and B5 for the
-    (B, N) blocks as the port's stages compute them, B4 the flat bytes, B1
+    (B, N) blocks as the port's stages compute them (B1-B3 also as the v2
+    route computes them, and B1 with the far tie at the gzip_lex shape,
+    ``(lcp_candidates, far)``), B4 the flat bytes, B1
     and B2 for the zstd and brotli paths' (1, 2^20) tokenizer call of the
     corpus's first MiB (max_dist 131,071 and 2^20), P1 the recorded
     ``scan_args``. Returns {(kernel, path): (args, kw)}."""
@@ -792,7 +857,21 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
         ("emit_pack", "gzip_lex"): ((bytep, shifted), {}),
         ("adler_tiles", "adler_device"): ((flat,), {}),
         ("fse_seq_scan", "zstd_device"): scan_args,
+        ("lcp_candidates", "far"): ((words, ps32), {**lcp_kw, "prefer_far": True}),
     }
+    # The v2 route's match_and_parse_batch (its defaults, depth V2_DEPTH)
+    # and its fixed-code fields.
+    *vbe, vps = sort_stage_lex(blocks, wcap=32, keys=2, stride=1)
+    vwords = u32.to_i32_bits(torch.stack([w.reshape(-1) for w in vbe]))
+    vps32 = vps.reshape(-1).to(torch.int32)
+    vbl, vbd = lcp_candidates_torch(vwords, vps32, **V2_LCP)
+    vstep, *_ = _post_match(blocks, ns, vps, vbl.reshape(B, -1).to(torch.int64),
+                            vbd.reshape(B, -1).to(torch.int64), wcap=32)
+    vbytep, vshifted, _, _ = _fixed_pack_inputs(
+        blocks, *match_and_parse_batch(blocks, ns, depth=V2_DEPTH))
+    inputs["lcp_candidates", "gzip_fixed_v2"] = ((vwords, vps32), dict(V2_LCP))
+    inputs["parse_cover", "gzip_fixed_v2"] = ((vstep.reshape(-1),), {})
+    inputs["emit_pack", "gzip_fixed_v2"] = ((vbytep, vshifted), {})
     # The zstd tokenizer's call: match_and_parse at its defaults (wcap 32,
     # two sort keys, stride 1) over one 1 MiB block.
     *zbe, zps = sort_stage_lex(zstd_call, wcap=32, keys=2, stride=1)
@@ -953,6 +1032,14 @@ def check_kernels(inputs: dict, names) -> list[dict]:
             entry["replaces_note"] = spec.replaces_note
         if name == "lcp_candidates":
             entry["sass_per_candidate"] = dict(LCP_COST)
+            far = hold_to_twin(name, "gzip_lex", spec, *inputs[name, "far"])
+            far.update(shape="prefer_far=True, the far tie (the reference's COMPU_LCP_TIE=far), "
+                             "at the gzip_lex shape; no path sets it, so it launches on none",
+                       launches=0)
+            log(f"lcp_candidates (gzip_lex): far tie {far['ms']:.4f} ms, share "
+                f"{far['share_of_bound']:.3f}, beside the nearer rule's {first['ms']:.4f} ms, "
+                f"share {first['share_of_bound']:.3f}")
+            entry["other_shapes"] = [far]
         if name == "match_candidates":
             entry["sass_per_candidate"] = dict(MATCH_COST)
         if name in CHAIN_KERNELS:
@@ -1130,6 +1217,174 @@ def gzip_decode_path(corpus: bytes, stream: bytes, index):
            "p3_launches_per_decode": batches, "launches": launches, "runs_counted": len(outs)}
     log("e2e " + json.dumps(res))
     return res, kernel
+
+
+def gzip_fixed_v2_path(corpus: bytes) -> tuple[dict, dict]:
+    """The v2 route over the whole corpus: ``make_block_encode_fn(kernel=
+    "v2", segment_index=True)`` through ``BlockParallelEncoder`` (one warm
+    encode, three timed), stdlib zlib gives the corpus back; then the
+    stream read back with its index by ``BlockParallelDecoder()`` (one warm
+    decode, three timed; P3 on the fixed code's tables), each decode giving
+    the corpus. Returns the encode's and the read-back's measurements."""
+    enc, fn = make_encoder("gzip_fixed_v2")
+    (stream, index, times), launches = run_path("gzip_fixed_v2",
+                                                lambda: timed_encodes(enc, corpus))
+    if zlib.decompress(stream, wbits=31) != corpus:
+        raise AssertionError("the v2 gzip stream does not decode to the corpus")
+    kinds = block_kinds(stream, index)
+    if set(kinds) != {"fixed"}:
+        raise AssertionError(f"the v2 stream holds other blocks than fixed ones: {dict(kinds)}")
+    dec = BlockParallelDecoder(block_size=BLOCK)
+
+    def decodes():
+        outs = [dec.decode(stream, index)]
+        dtimes = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(dec.decode(stream, index))
+            dtimes.append(time.perf_counter() - t0)
+        return outs, dtimes
+
+    (outs, dtimes), dlaunches = run_path("gzip_fixed_v2_decode", decodes)
+    if any(out != corpus for out in outs):
+        raise AssertionError("a read-back of the v2 stream differs from the corpus")
+    batches = -(-len(index.raw_lengths) // BlockParallelDecoder.DEVICE_DECODE_BATCH)
+    if dlaunches["inflate_scan"] != batches * len(outs):
+        raise AssertionError(f"{dlaunches['inflate_scan']} P3 launches in {len(outs)} "
+                             f"read-backs of {batches} batches")
+    dsec = statistics.median(dtimes)
+    back = {"path": "gzip_fixed_v2_decode", "bytes": len(corpus), "compressed": len(stream),
+            "ratio": len(corpus) / len(stream), "median_s": dsec, "runs_s": dtimes, "MBps": len(corpus) / dsec / 1e6,
+            "launches": dlaunches, "runs_counted": len(outs)}
+    log(f"gzip_fixed_v2: {len(index.raw_lengths)} fixed blocks; 4 read-backs give the corpus, "
+        f"{dlaunches['inflate_scan']} P3 launches ({batches} a decode)")
+    log("e2e " + json.dumps(back))
+    return (summary("gzip_fixed_v2", corpus, stream, times, launches, depth=V2_DEPTH,
+                    read_back_MBps=back["MBps"], last_timings=fn.last_timings), back)
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A process group of one rank on this card (NCCL, nothing else), left
+    on exit."""
+    pmesh.init_world(rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_encode_once(step, blocks: np.ndarray, lens: np.ndarray):
+    """One sharded encode step of the blocks, the stream (each block's
+    bytes, then a final empty stored block) assembled on the host."""
+    outs, out_lens, adlers, total = step(torch.from_numpy(blocks), torch.from_numpy(lens))
+    out_lens = out_lens.cpu().numpy()
+    flat = outs.cpu().numpy()
+    stream = b"".join(flat[i, :out_lens[i]].tobytes() for i in range(len(lens))) + TERM
+    return stream, out_lens, adlers.cpu().numpy().view(np.uint32), int(total)
+
+
+def _host_huf_streams(freqs: np.ndarray, chunks: list) -> list:
+    """The host writer's streams (``HufEncoder.encode_stream``), for a
+    worker process."""
+    enc = HufEncoder(freqs)
+    return [enc.encode_stream(c) for c in chunks]
+
+
+def literal_inputs(corpus: bytes):
+    """The literal step's inputs: 4 streams of each 128 KiB frame block
+    (``LIT_BLOCK``), padded into one (L, P) matrix, and the table from the
+    corpus's byte counts (each count plus 1)."""
+    freqs = np.bincount(np.frombuffer(corpus, np.uint8), minlength=256) + 1
+    per = LIT_BLOCK // 4
+    chunks = [corpus[i:i + per] for i in range(0, len(corpus), per)]
+    mat = np.zeros((len(chunks), per), np.uint8)
+    counts = np.array([len(c) for c in chunks], np.int32)
+    for i, c in enumerate(chunks):
+        mat[i, :len(c)] = np.frombuffer(c, np.uint8)
+    return freqs, chunks, mat, counts, per + per // 2 + 64
+
+
+def mesh_encode_path(corpus: bytes, blocks: np.ndarray, lens: np.ndarray) -> dict:
+    """``parallel/mesh.py`` on an NCCL world of one rank on the card, and
+    then ``dryrun_multichip(1)``: (i) the sharded encode step over the 64
+    blocks (one warm step, three timed, each with its fetch and the host's
+    stream assembly): the total equals the sum of the gathered lengths,
+    the stream decodes through stdlib zlib and through
+    ``decoder.Interface.zlib_device`` on the card, and the gathered adlers
+    combine to the corpus's adler32; (ii) the stream-sharded literal step
+    over the corpus's 128 frame blocks x 4 streams, each stream equal to
+    the host writer's (``HufEncoder.encode_stream``, run in worker
+    processes meanwhile); (iii) the lane-sharded crc32 on a (1, 1) ("dp",
+    "lane") mesh, each block's registers folding to its zlib.crc32."""
+    def run():
+        with nccl_world():
+            mesh = pmesh.default_mesh()
+            step = pmesh.make_sharded_encode_step(mesh)
+            mesh_encode_once(step, blocks, lens)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stream, out_lens, adlers, total = mesh_encode_once(step, blocks, lens)
+                times.append(time.perf_counter() - t0)
+            if total != int(out_lens.astype(np.int64).sum()):
+                raise AssertionError(f"(i) total {total} != the sum of the gathered lengths")
+            if zlib.decompress(stream, wbits=-15) != corpus:
+                raise AssertionError("(i) stdlib zlib does not decode the mesh stream")
+            t0 = time.perf_counter()
+            out = bytearray(len(corpus) + 16)
+            res = decoder.Interface.zlib_device(ZlibMode.Deflate).decode(stream, out)
+            t_dec = time.perf_counter() - t0
+            if res.status is not DecodeStatus.Finished or bytes(out[:len(corpus)]) != corpus:
+                raise AssertionError(f"(i) zlib_device does not decode the mesh stream "
+                                     f"({res.status})")
+            combined = 1
+            for i in range(len(lens)):
+                combined = checksum.adler32_combine(combined, int(adlers[i]), int(lens[i]))
+            if combined != zlib.adler32(corpus):
+                raise AssertionError("(i) the gathered adlers do not combine to the corpus's")
+            log(f"mesh_encode (i): {len(lens)} blocks, {total} bytes; zlib and zlib_device "
+                f"({t_dec:.2f} s) give the corpus; the adlers combine to zlib.adler32")
+
+            freqs, chunks, mat, counts, cap = literal_inputs(corpus)
+            ctx = multiprocessing.get_context("spawn")
+            with concurrent.futures.ProcessPoolExecutor(6, mp_context=ctx) as pool:
+                host = [pool.submit(_host_huf_streams, freqs, chunks[i:i + 4])
+                        for i in range(0, len(chunks), 4)]
+                enc = HufEncoder(freqs)
+                code = np.zeros(256, np.int64)
+                nbits = np.zeros(256, np.int64)
+                code[:enc.max_symbol + 1] = enc.code
+                nbits[:enc.max_symbol + 1] = enc.nbits
+                lit_step = pmesh.make_stream_sharded_literal_step(mesh, cap=cap)
+                got, nb = (x.cpu().numpy() for x in lit_step(mat, counts, code, nbits))
+                want = [b for f in host for b in f.result()]
+            if any(got[i, :nb[i]].tobytes() != w for i, w in enumerate(want)):
+                raise AssertionError("(ii) a literal stream differs from the host writer's")
+            log(f"mesh_encode (ii): {len(want)} literal streams ({len(want) // 4} blocks x 4) "
+                "equal the host writer's")
+
+            mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "lane"))
+            crc_step = pmesh.make_lane_sharded_crc(mesh2)
+            N = blocks.shape[1]
+            for i in range(len(lens)):
+                regs = crc_step(torch.from_numpy(blocks[i:i + 1]))[0].cpu().numpy()
+                reg = checksum.fold_lane_registers(regs, N // len(regs))
+                crc = checksum.crc_unshift(reg, N - int(lens[i])) ^ 0xFFFFFFFF
+                if crc != zlib.crc32(blocks[i, :lens[i]].tobytes()):
+                    raise AssertionError(f"(iii) block {i}: the lane-sharded crc32 differs")
+            log(f"mesh_encode (iii): {len(lens)} blocks' lane-sharded registers fold to "
+                "zlib.crc32")
+        dryrun_multichip(1)
+        return stream, times
+
+    (stream, times), launches = run_path("mesh_encode", run)
+    # Five encode steps launch the path's kernels: the warm one, the three
+    # timed, and the dry run's.
+    return summary("mesh_encode", corpus, stream, times, launches, world=1, backend="nccl",
+                   runs_counted=5)
 
 
 # The gzip decode's stages, by the module whose globals the decode looks
@@ -1374,9 +1629,10 @@ def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
 
 def make_encoder(path: str):
     """The ``BlockParallelEncoder`` of an encode path, and its step."""
-    if path == "gzip_lex":
+    if path in ("gzip_lex", "gzip_fixed_v2"):
         fn = make_block_encode_fn(ZlibMode.Gzip, level=LEVEL, segment_index=True,
-                                  pipeline_groups=GROUPS)
+                                  pipeline_groups=GROUPS,
+                                  kernel="v2" if path == "gzip_fixed_v2" else "v3")
         return BlockParallelEncoder(fn, block_size=BLOCK, mode=ZlibMode.Gzip), fn
     step = _hash_zlib_step(torch.device("cuda"), HASH_PATHS[path])
     return BlockParallelEncoder(step, block_size=BLOCK, mode=ZlibMode.Zlib), step
@@ -1440,13 +1696,14 @@ def adler_device_path(blocks: np.ndarray, lens: np.ndarray, metas: np.ndarray) -
             "runs_counted": 1}
 
 
-def cpu_equals_device(blocks: np.ndarray, lens: np.ndarray, label: str, **kw) -> None:
-    """The port on CPU tensors (the twins) and on the card give equal bytes."""
+def cpu_equals_device(blocks: np.ndarray, lens: np.ndarray, label: str,
+                      encode=encode_blocks_dyn, **kw) -> None:
+    """The port's ``encode`` on CPU tensors (the twins) and on the card give
+    equal bytes."""
     t0 = time.perf_counter()
-    cpu = [x.numpy() for x in encode_blocks_dyn(torch.from_numpy(blocks),
-                                                torch.from_numpy(lens), **kw)]
+    cpu = [x.numpy() for x in encode(torch.from_numpy(blocks), torch.from_numpy(lens), **kw)]
     t_cpu = time.perf_counter() - t0
-    dev = [x.cpu().numpy() for x in encode_blocks_dyn(
+    dev = [x.cpu().numpy() for x in encode(
         torch.from_numpy(blocks).cuda(), torch.from_numpy(lens).cuda(), **kw)]
     if not np.array_equal(cpu[1], dev[1]):
         raise AssertionError(f"{label}: metas differ: cpu {cpu[1].tolist()} gpu {dev[1].tolist()}")
@@ -1964,12 +2221,22 @@ STAGES = (
     (deflate_v2, "_merge_seg_boundaries"), (deflate_v3, "_tok_hist_from_match"),
     (deflate_v3, "_block_checksum"), (deflate_v3, "_build_tables"), (deflate_v3, "_emit"),
 )
+# The v2 encode's stages: the LZ stage's, the fixed fields with their
+# offsets, B3, the rows' placement, the checksum and the overflow index.
+V2_STAGES = (
+    (deflate_v2, "sort_stage_lex"), (deflate_v2, "lcp_candidates"),
+    (deflate_v2, "_post_match"), (deflate_v2, "parse_cover"),
+    (deflate_v2, "_merge_seg_boundaries"), (deflate_v2, "_fixed_pack_inputs"),
+    (deflate_v2, "emit_pack"), (deflate_v2, "_place_rows"), (deflate_v2, "_block_checksum"),
+    (deflate_v2, "cover_overflow"),
+)
 
 
-def stage_ms(enc, corpus: bytes) -> dict:
-    """One encode with each stage synchronised before and after: ms per
-    stage, summed over the groups, and the whole encode's."""
-    times = dict.fromkeys((name for _, name in STAGES), 0.0)
+def stage_ms(encode, stages=STAGES) -> dict:
+    """One ``encode()`` with each stage of ``stages`` synchronised before
+    and after: ms per stage, summed over the groups, and the whole
+    encode's."""
+    times = dict.fromkeys((name for _, name in stages), 0.0)
 
     def timed(name, fn):
         def wrapper(*args, **kw):
@@ -1981,13 +2248,13 @@ def stage_ms(enc, corpus: bytes) -> dict:
             return out
         return wrapper
 
-    saved = [(mod, name, getattr(mod, name)) for mod, name in STAGES]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in stages]
     for mod, name, fn in saved:
         setattr(mod, name, timed(name, fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc.encode(corpus)
+        encode()
         torch.cuda.synchronize()
         times["total"] = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2042,29 +2309,46 @@ def profile_main(corpus: bytes) -> None:
     """``--profile``: per encode path, and for each decode, one warm run,
     one unprofiled, one with the stages synchronised and one under the
     profiler."""
-    for path in ("gzip_lex", *HASH_PATHS):
+    for path in ("gzip_lex", *HASH_PATHS, "gzip_fixed_v2"):
         enc, _ = make_encoder(path)
-        enc.encode(corpus)
+        encode = functools.partial(enc.encode, corpus)
+        encode()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc.encode(corpus)
+        encode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        res = {"path": path, "wall_ms": wall_ms, "stages_ms": stage_ms(enc, corpus),
-               **device_profile(lambda: enc.encode(corpus))}
+        stages = V2_STAGES if path == "gzip_fixed_v2" else STAGES
+        res = {"path": path, "wall_ms": wall_ms, "stages_ms": stage_ms(encode, stages),
+               **device_profile(encode)}
         log("profile " + json.dumps(res))
-    enc, _ = make_encoder("gzip_lex")
-    stream, index = enc.encode(corpus)
-    decode = functools.partial(BlockParallelDecoder(block_size=BLOCK).decode, stream, index)
-    decode()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    res = {"path": "gzip_decode", "wall_ms": wall_ms,
-           "stages_ms": gzip_decode_stage_ms(stream, index), **device_profile(decode)}
+    blocks, lens = split_blocks(corpus)
+    with nccl_world():
+        encode = functools.partial(mesh_encode_once,
+                                   pmesh.make_sharded_encode_step(pmesh.default_mesh()),
+                                   blocks, lens)
+        encode()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        res = {"path": "mesh_encode", "wall_ms": wall_ms, "stages_ms": stage_ms(encode),
+               **device_profile(encode)}
     log("profile " + json.dumps(res))
+    for enc_path, path in (("gzip_lex", "gzip_decode"), ("gzip_fixed_v2", "gzip_fixed_v2_decode")):
+        enc, _ = make_encoder(enc_path)
+        stream, index = enc.encode(corpus)
+        decode = functools.partial(BlockParallelDecoder(block_size=BLOCK).decode, stream, index)
+        decode()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        res = {"path": path, "wall_ms": wall_ms,
+               "stages_ms": gzip_decode_stage_ms(stream, index), **device_profile(decode)}
+        log("profile " + json.dumps(res))
     stream = gzip_stream(corpus)
     decode = functools.partial(foreign_decode, stream, len(corpus))
     decode()
@@ -2148,26 +2432,34 @@ def main() -> None:
     runs["gzip_lex"], gz_stream, gz_index = gzip_lex_path(corpus)
     runs["gzip_decode"], p3_entry = gzip_decode_path(corpus, gz_stream, gz_index)
     runs["gzip_foreign_decode"], p4_entry = gzip_foreign_decode_path(corpus)
+    runs["gzip_fixed_v2"], runs["gzip_fixed_v2_decode"] = gzip_fixed_v2_path(corpus)
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
     runs["adler_device"] = adler_device_path(blocks, lens, metas["zlib_hash"])
+    runs["mesh_encode"] = mesh_encode_path(corpus, blocks, lens)
     runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
     runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
     runs["brotli_device"] = brotli_device_path(corpus)
     kernels += p2_entry + p3_entry + p4_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
-        for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", *HASH_PATHS, "zstd_device",
+        for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", "gzip_fixed_v2",
+                  "gzip_fixed_v2_decode", *HASH_PATHS, "mesh_encode", "zstd_device",
                   "zstd_decode", "brotli_device")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]
             entry["launches"] = run["launches"][k["name"]]
             entry["launches_per_encode"] = entry["launches"] / run["runs_counted"]
+        k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in runs.items()
+                                 if r["launches"].get(k["name"])}
     cpu_equals_device(blocks[:4], lens[:4], "gzip_lex", with_index=True, check="crc", **LADDER)
     for p, cfg in HASH_PATHS.items():
         cpu_equals_device(blocks[:4], lens[:4], p, with_index=True, check="adler", **cfg)
+    cpu_equals_device(blocks[:V2_CPU_BLOCKS], lens[:V2_CPU_BLOCKS], "gzip_fixed_v2",
+                      encode=encode_blocks_fixed_v2, with_index=True, check="crc",
+                      depth=V2_DEPTH)
     stream_encoder()
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "compu_tpu", "bench"))

@@ -23,7 +23,8 @@ from .formats.deflate.options import ZlibDecodeOptions, ZlibMode, ZlibOptions
 from .kernels.block_codec import make_block_encode_fn
 from .parallel.scheduler import BlockParallelDecoder, BlockParallelEncoder
 from .status import Decode, DecodeError, DecodeStatus
+from .vec import ByteVec, ChunkedSink
 
-__all__ = ["BlockParallelDecoder", "BlockParallelEncoder", "Buffer", "Decode", "DecodeError",
-           "DecodeStatus", "Detection", "ZlibDecodeOptions", "ZlibMode", "ZlibOptions", "decoder",
-           "encoder", "make_block_encode_fn"]
+__all__ = ["BlockParallelDecoder", "BlockParallelEncoder", "Buffer", "ByteVec", "ChunkedSink",
+           "Decode", "DecodeError", "DecodeStatus", "Detection", "ZlibDecodeOptions", "ZlibMode",
+           "ZlibOptions", "decoder", "encoder", "make_block_encode_fn"]

@@ -39,7 +39,7 @@ LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "compu_lcp_candidates": (_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _P),
+    "compu_lcp_candidates": (_P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
     "compu_parse_cover": (_P, _P, _LL, _P),
     "compu_emit_pack": (_P, _P, _P, _LL, _I, _P),
     "compu_match_candidates": (_P, _P, _P, _I, _P, _P, _LL, _LL, _I, _I, _P),

@@ -7,8 +7,9 @@
 // For every sorted lane i: adj[i] = equal leading bytes of the window words
 // of lanes i-1 and i (0 at a block start). The LCP to neighbour i-d is
 // min(adj[i-d+1..i]) and to i+d is min(adj[i+1..i+d]); the best (len, dist)
-// with 0 < dist <= max_dist wins, the nearer distance on equal length.
-// Neighbours never cross a block of block_elems lanes.
+// with 0 < dist <= max_dist wins, the nearer distance on equal length, or
+// the farther one with prefer_far (the reference kernel's COMPU_LCP_TIE=far,
+// lcp_match.py:229). Neighbours never cross a block of block_elems lanes.
 //
 // Bound on the H100: memory, with the ALU pipe close behind. Each lane
 // reads nwords + 1 words and writes 2, and weighs 2*depth candidates; a
@@ -33,12 +34,15 @@
 // array, so a running min that reaches past its block is 0 and the
 // candidate cannot win. No lane tests its position in the block.
 //
-// A candidate is one packed key, (len << 24) | (max_dist - dist), kept by a
-// max: the order of keys is the order of "longer, then nearer", so the max
-// over all candidates is the twin's sequential choice, whatever the order.
-// A distance in (0, max_dist] is exactly (unsigned)(max_dist - dist) <
-// max_dist, one compare; a candidate out of range offers the key 0. Needs
-// max_dist <= 2^24 (the wrapper checks).
+// A candidate is one packed key, (len << 24) | t, kept by a max. For the
+// nearer rule t = max_dist - dist, so the order of keys is the order of
+// "longer, then nearer"; for the farther rule (template parameter FAR, its
+// own instantiations) t = dist - 1, "longer, then farther". Either way the
+// max over all candidates is the twin's sequential choice, whatever the
+// order, and a distance in (0, max_dist] is exactly (unsigned)t < max_dist,
+// one compare; a candidate out of range offers the key 0. Both t are one
+// add from the lane's base and the neighbour's position, so the two rules
+// cost the same. Needs max_dist <= 2^24 (the wrapper checks).
 
 #include <climits>
 #include <cstdint>
@@ -76,10 +80,11 @@ __device__ __forceinline__ void unpack(int4 v, int (&a)[4]) {
 }
 
 // One candidate: running LCP l, neighbour position q, for a lane whose
-// base is max_dist - p.
+// base is max_dist - p (nearer rule) or p - 1 (FAR).
+template <bool FAR>
 __device__ __forceinline__ void consider(int l, int q, int base, int max_dist,
                                          int& best) {
-  const int t = base + q;  // max_dist - dist
+  const int t = FAR ? base - q : base + q;  // dist - 1 : max_dist - dist
   // t < 2^24 where it is kept, so l * 2^24 + t is (l << 24) | t: one IMAD,
   // on the FMA pipe, beside the ALU's compare, select and max.
   const int key = l * (1 << 24) + t;
@@ -88,8 +93,9 @@ __device__ __forceinline__ void consider(int l, int q, int base, int max_dist,
                        : 0);
 }
 
-// DEPTH > 0: compile-time depth; DEPTH == 0: runtime depth.
-template <int DEPTH>
+// DEPTH > 0: compile-time depth; DEPTH == 0: runtime depth. FAR: equal
+// lengths take the farther distance.
+template <int DEPTH, bool FAR>
 __global__ void __launch_bounds__(kThreads)
     lcp_kernel(const int32_t* __restrict__ words, int nwords,
                const int32_t* __restrict__ ps, int32_t* __restrict__ best_len,
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     p[q] = pa_hi[q];
-    base[q] = max_dist - p[q];
+    base[q] = FAR ? p[q] - 1 : max_dist - p[q];
     best[q] = 0;
     mb[q] = INT_MAX;
     mf[q] = INT_MAX;
@@ -180,13 +186,13 @@ __global__ void __launch_bounds__(kThreads)
           // Backward, d = 4g+1+r: adj of lane q-d+1, ps of lane q-d.
           const int ia = q - r, ip = q - r - 1;
           mb[q] = min(mb[q], ia >= 0 ? a_hi[ia] : a_lo[4 + ia]);
-          consider(mb[q], ip >= 0 ? pa_hi[ip] : pa_lo[4 + ip], base[q],
-                   max_dist, best[q]);
+          consider<FAR>(mb[q], ip >= 0 ? pa_hi[ip] : pa_lo[4 + ip], base[q],
+                        max_dist, best[q]);
           // Forward: adj and ps of lane q+d.
           const int i = q + 1 + r;
           mf[q] = min(mf[q], i < 4 ? f_lo[i] : f_hi[i - 4]);
-          consider(mf[q], i < 4 ? pf_lo[i] : pf_hi[i - 4], base[q], max_dist,
-                   best[q]);
+          consider<FAR>(mf[q], i < 4 ? pf_lo[i] : pf_hi[i - 4], base[q],
+                        max_dist, best[q]);
         }
       }
     }
@@ -207,7 +213,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     bl[q] = best[q] >> 24;
-    bd[q] = bl[q] > 0 ? max_dist - (best[q] & 0xFFFFFF) : 0;
+    const int t = best[q] & 0xFFFFFF;
+    bd[q] = bl[q] > 0 ? (FAR ? t + 1 : max_dist - t) : 0;
   }
   const long long i0 = tile0 + kLanes * threadIdx.x;
   if (vec) {
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DEPTH>
+template <int DEPTH, bool FAR>
 cudaError_t launch(const int32_t* words, int nwords, const int32_t* ps,
                    int32_t* best_len, int32_t* best_dist, long long n,
                    long long block_elems, int depth, int max_dist, bool vec,
@@ -235,12 +242,12 @@ cudaError_t launch(const int32_t* words, int nwords, const int32_t* ps,
   const size_t smem = static_cast<size_t>(nwords + 2) * span * sizeof(int32_t);
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
-        lcp_kernel<DEPTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lcp_kernel<DEPTH, FAR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
-  lcp_kernel<DEPTH><<<blocks, kThreads, smem, stream>>>(
+  lcp_kernel<DEPTH, FAR><<<blocks, kThreads, smem, stream>>>(
       words, nwords, ps, best_len, best_dist, n, block_elems - 1, depth,
       max_dist, vec);
   return cudaGetLastError();
@@ -250,30 +257,15 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
-
-// words: (nwords, n) u32 bit patterns; ps, best_len, best_dist: (n,) i32.
-// 1 <= nwords <= 8; block_elems is a power of two dividing n;
-// 1 <= depth < 128; 0 <= max_dist <= 2^24.
-extern "C" int compu_lcp_candidates(const void* words, int nwords,
-                                    const void* ps, void* best_len,
-                                    void* best_dist, long long n,
-                                    long long block_elems, int depth,
-                                    int max_dist, void* stream) {
-  auto w = static_cast<const int32_t*>(words);
-  auto p = static_cast<const int32_t*>(ps);
-  auto bl = static_cast<int32_t*>(best_len);
-  auto bd = static_cast<int32_t*>(best_dist);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = n % 4 == 0 && aligned16(w) && aligned16(p) &&
-                   aligned16(bl) && aligned16(bd);
-  cudaError_t err;
+template <bool FAR>
+cudaError_t dispatch(const int32_t* w, int nwords, const int32_t* p,
+                     int32_t* bl, int32_t* bd, long long n,
+                     long long block_elems, int depth, int max_dist, bool vec,
+                     cudaStream_t s) {
   switch (depth) {
-#define COMPU_LCP_DEPTH(D)                                                \
-  case D:                                                                 \
-    err = launch<D>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist, \
-                    vec, s);                                              \
-    break;
+#define COMPU_LCP_DEPTH(D) \
+  case D:                  \
+    return launch<D, FAR>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist, vec, s);
     COMPU_LCP_DEPTH(4)
     COMPU_LCP_DEPTH(6)
     COMPU_LCP_DEPTH(8)
@@ -284,8 +276,31 @@ extern "C" int compu_lcp_candidates(const void* words, int nwords,
     COMPU_LCP_DEPTH(48)
 #undef COMPU_LCP_DEPTH
     default:
-      err = launch<0>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist,
-                      vec, s);
+      return launch<0, FAR>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist, vec, s);
   }
+}
+
+}  // namespace
+
+// words: (nwords, n) u32 bit patterns; ps, best_len, best_dist: (n,) i32.
+// 1 <= nwords <= 8; block_elems is a power of two dividing n;
+// 1 <= depth < 128; 0 <= max_dist <= 2^24; prefer_far != 0 takes the
+// farther distance on equal length.
+extern "C" int compu_lcp_candidates(const void* words, int nwords,
+                                    const void* ps, void* best_len,
+                                    void* best_dist, long long n,
+                                    long long block_elems, int depth,
+                                    int max_dist, int prefer_far,
+                                    void* stream) {
+  auto w = static_cast<const int32_t*>(words);
+  auto p = static_cast<const int32_t*>(ps);
+  auto bl = static_cast<int32_t*>(best_len);
+  auto bd = static_cast<int32_t*>(best_dist);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && aligned16(w) && aligned16(p) &&
+                   aligned16(bl) && aligned16(bd);
+  const cudaError_t err =
+      prefer_far ? dispatch<true>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist, vec, s)
+                 : dispatch<false>(w, nwords, p, bl, bd, n, block_elems, depth, max_dist, vec, s);
   return static_cast<int>(err);
 }

@@ -2,12 +2,15 @@
 
 The port's copy of ``compu_tpu/encoder.py::Encoder``: the 3-op protocol
 (Process/Flush/Finish) and its convenience layer (``encode_vec``,
-``encode_vec_full``). ``Interface`` holds the port's constructors,
-``stored``, ``zlib_device``, ``zstd`` and ``brotli``. ``ByteVec`` and the status types are
-re-exported so a caller names only this module.
+``encode_vec_full``, ``encode_buf``). ``Interface`` is a registry of
+pipeline factories with the port's constructors, ``stored``,
+``zlib_device``, ``zstd`` and ``brotli``. ``ByteVec`` and the status types
+are re-exported so a caller names only this module.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict
 
 from .formats.base import EncoderBackend
 from .status import Encode, EncodeOp, EncodeStatus
@@ -59,13 +62,47 @@ class Encoder:
             inp = inp[len(inp) - result.input_remain :]
             vec.reserve_exact(1024 if len(vec) < 65_536 else 8192)
 
+    def encode_buf(self, inp, out_buf, op: EncodeOp) -> Encode:
+        """Encode into a growable sink. Sinks exposing
+        ``chunk_mut()``/``advance_mut()`` (``ChunkedSink``) are written in
+        place, chunk by chunk; plain ``bytearray`` sinks get each 64 KiB
+        chunk appended."""
+        inp = memoryview(inp)
+        lending = hasattr(out_buf, "chunk_mut") and hasattr(out_buf, "advance_mut")
+        staged = None if lending else bytearray(65_536)
+        while True:
+            chunk = out_buf.chunk_mut() if lending else staged
+            result = self.encode(inp, chunk, op)
+            produced = len(chunk) - result.output_remain
+            if lending:
+                out_buf.advance_mut(produced)
+            else:
+                out_buf.extend(chunk[:produced])
+            if result.status is not EncodeStatus.NeedOutput:
+                return Encode(result.input_remain, result.output_remain, result.status)
+            inp = inp[len(inp) - result.input_remain :]
+
     def reset(self) -> bool:
         """Re-arm for a new stream, keeping the construction options."""
         return self._backend.reset()
 
 
 class Interface:
-    """Constructors of the port's encoders."""
+    """Registry of encode pipeline factories, and the port's constructors."""
+
+    _registry: Dict[str, Callable[..., EncoderBackend]] = {}
+
+    @classmethod
+    def register(cls, name: str, factory: Callable[..., EncoderBackend]) -> None:
+        cls._registry[name] = factory
+
+    @classmethod
+    def new(cls, name: str, *args, **kwargs) -> Encoder:
+        try:
+            factory = cls._registry[name]
+        except KeyError:
+            raise ValueError(f"unknown encoder backend: {name!r}") from None
+        return Encoder(factory(*args, **kwargs))
 
     @staticmethod
     def stored() -> Encoder:

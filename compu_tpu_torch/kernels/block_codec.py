@@ -1,6 +1,7 @@
 """Device block-encode step for the block-parallel scheduler.
 
-Port of ``compu_tpu/kernels/block_codec.py`` (v3 kernel). One upload of
+Port of ``compu_tpu/kernels/block_codec.py`` (the v3 kernel, and the
+fixed-Huffman v2 kernel, ``kernel="v2"``). One upload of
 each group's block matrix, the whole encode on the device, compaction of
 the padded per-block outputs into one exact-length buffer on the device,
 then two fetches: the small metadata, and the compressed bytes.
@@ -15,7 +16,13 @@ import torch
 
 from ..formats.deflate.options import ZlibMode
 from ..ops import checksum
+from .deflate_v2 import encode_blocks_fixed_v2
 from .deflate_v3 import encode_blocks_dyn
+
+# The depth column of the reference's host ladder (``_LEVEL``, whose nice
+# and lazy columns only its unported v1 kernel reads); the v2 kernel
+# matches at depth min(depth, 8).
+HOST_DEPTH = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 7: 16, 8: 24, 9: 32}
 
 # Device ladder of the lex/LCP matcher, per level.
 DEV_WCAP = {1: 8, 2: 8, 3: 8, 4: 16, 5: 16, 6: 16, 7: 16, 8: 16, 9: 16}
@@ -27,15 +34,24 @@ DEV_STRIDE = {1: 2, 2: 2, 3: 2, 4: 1, 5: 1, 6: 1, 7: 1, 8: 1, 9: 1}
 def _encode_blocks_batched(blocks: torch.Tensor, lens: torch.Tensor, *,
                            depth: int, with_index: bool, check: str,
                            wcap: int = 32, stride: int = 1, lex_keys: int = 2,
-                           matcher: str = "lex"):
+                           matcher: str = "lex", kernel: str = "v3"):
     """Encode a (B, N) block matrix and compact it on the device.
 
-    Returns ``(packed (B*cap + cap,) uint8, metas (B, 2) int32,
-    seg_bits (B, S) int32 or None)``; only ``packed[:sum(lens)]`` is
-    defined: block i's bytes at offset ``sum(lens[:i])``."""
-    res = encode_blocks_dyn(blocks, lens, depth=depth, with_index=with_index,
-                            check=check, wcap=wcap, stride=stride,
-                            lex_keys=lex_keys, matcher=matcher)
+    ``kernel`` is ``"v3"`` (dynamic, fixed or stored blocks, the matcher
+    as given) or ``"v2"`` (fixed Huffman codes only, the lex matcher at
+    its defaults: ``wcap``, ``stride``, ``lex_keys`` and ``matcher`` are
+    not read). Returns ``(packed (B*cap + cap,) uint8, metas (B, 2)
+    int32, seg_bits (B, S) int32 or None)``; only ``packed[:sum(lens)]``
+    is defined: block i's bytes at offset ``sum(lens[:i])``."""
+    if kernel == "v2":
+        res = encode_blocks_fixed_v2(blocks, lens, depth=depth, with_index=with_index,
+                                     check=check)
+    elif kernel == "v3":
+        res = encode_blocks_dyn(blocks, lens, depth=depth, with_index=with_index,
+                                check=check, wcap=wcap, stride=stride,
+                                lex_keys=lex_keys, matcher=matcher)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}")
     outs, metas = res[0], res[1]
     B, cap = outs.shape
     out_lens = metas[:, 0].to(torch.int64)
@@ -58,17 +74,19 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, kernel: str = "v3",
     crc32 (gzip) of each block. ``device`` defaults to CUDA; a CPU device
     runs every kernel's plain twin. ``pipeline_groups`` > 1 encodes the
     batch in that many groups, one after another on one stream.
+    ``kernel="v3"`` (the default) writes dynamic, fixed or stored blocks
+    with the device ladder's lex matcher; ``"v2"`` fixed-Huffman blocks
+    only, matched at depth ``min(HOST_DEPTH[level], 8)``.
     ``fn.last_timings`` holds the last call's breakdown in milliseconds."""
-    if kernel in ("v1", "v2"):
+    if kernel == "v1":
         raise NotImplementedError(
-            f"kernel={kernel!r} is not ported: v2 is ROADMAP A11, and v1 is "
-            "not to be ported")
-    if kernel != "v3":
+            "kernel='v1' (the chain-walk encode) is not ported, by design: use 'v3' or 'v2'")
+    if kernel not in ("v2", "v3"):
         raise ValueError(f"unknown kernel {kernel!r}")
     device = torch.device("cuda" if device is None else device)
     lvl = max(1, min(9, level))
-    wcap, vdepth = DEV_WCAP[lvl], DEV_DEPTH[lvl]
-    vkeys, vstride = DEV_KEYS[lvl], DEV_STRIDE[lvl]
+    wcap, vkeys, vstride = DEV_WCAP[lvl], DEV_KEYS[lvl], DEV_STRIDE[lvl]
+    vdepth = DEV_DEPTH[lvl] if kernel == "v3" else min(HOST_DEPTH[lvl], 8)
     check = "crc" if mode is ZlibMode.Gzip else "adler"
 
     def fn(blocks: np.ndarray, lens: np.ndarray):
@@ -85,7 +103,7 @@ def make_block_encode_fn(mode: ZlibMode, level: int = 6, kernel: str = "v3",
             parts.append(_encode_blocks_batched(
                 dev_blocks, lens_dev[g * gb:(g + 1) * gb], depth=vdepth,
                 with_index=segment_index, check=check, wcap=wcap,
-                stride=vstride, lex_keys=vkeys))
+                stride=vstride, lex_keys=vkeys, kernel=kernel))
         small = [p[1].reshape(-1) for p in parts]
         if segment_index:
             small += [p[2].reshape(-1) for p in parts]

@@ -1,7 +1,8 @@
-"""Block CRC register on the device (plain PyTorch).
+"""Block checksums on the device (plain PyTorch).
 
-Port of ``checksum_jax.crc32_lane_registers`` and
-``deflate_jax_v2._device_crc_register``. A CRC register is GF(2)-linear in
+Port of ``checksum_jax.crc32_lane_registers``, ``checksum_jax.adler32_block``
+and ``deflate_jax_v2._device_crc_register``; ``_block_checksum`` is the
+batched checksum of the block encodes. A CRC register is GF(2)-linear in
 the input bits, so the registers of all lanes are one product
 ``bits(lanes, 8c) @ A(8c, 32)`` taken mod 2, and the lane registers fold
 pairwise with 32x32 zero-shift operators. The products run in float32 with
@@ -16,7 +17,7 @@ import contextlib
 
 import torch
 
-from .tables import on_device
+from .tables import ADLER_MOD, on_device
 
 
 @contextlib.contextmanager
@@ -70,3 +71,30 @@ def device_crc_register(blocks: torch.Tensor) -> torch.Tensor:
             shifted = even @ mats[k]
             bits = ((shifted + odd).to(torch.int64) & 1).to(torch.float32)
     return _bits_to_u32(bits[:, 0])
+
+
+def _block_checksum(datas: torch.Tensor, ns: torch.Tensor, check: str) -> torch.Tensor:
+    """(B,) int64 u32: the raw init-0 CRC register of each padded block for
+    "crc", the adler32 of its first n bytes for "adler"."""
+    if check == "crc":
+        return device_crc_register(datas)
+    if check != "adler":
+        raise ValueError(f"check must be 'crc' or 'adler', got {check!r}")
+    B, N = datas.shape
+    pos = torch.arange(N, device=datas.device)
+    n = ns[:, None]
+    db = torch.where(pos < n, datas.to(torch.int64), 0)
+    s = db.sum(-1)
+    wmod = torch.clamp(n - pos, min=0) % ADLER_MOD
+    group = (db * wmod).reshape(B, -1, 64).sum(-1) % ADLER_MOD
+    w = group.sum(-1) % ADLER_MOD
+    a = (1 + s) % ADLER_MOD
+    b = (ns % ADLER_MOD + w) % ADLER_MOD
+    return (b << 16) | a
+
+
+def adler32_block(data: torch.Tensor, n) -> int:
+    """adler32 of the first ``n`` bytes of a padded (N,) uint8 block, as an
+    int: the single-block form of :func:`_block_checksum`."""
+    ns = torch.as_tensor(n, dtype=torch.int64, device=data.device).reshape(1)
+    return int(_block_checksum(data[None], ns, "adler")[0])

@@ -18,10 +18,10 @@ import torch.nn.functional as F
 from ..formats.deflate import consts
 
 from . import u32
-from .checksum import device_crc_register
+from .checksum import _block_checksum
 from .deflate_v2 import SEG, cover_overflow, match_and_parse_batch
 from .emit_pack import W2, emit_pack
-from .tables import ADLER_MOD, NDIST, NLIT, on_device
+from .tables import NDIST, NLIT, on_device
 
 CAPBITS = 12   # max lit/len/dist code length (keeps every field in 4 bytes)
 CLCAP = 7      # max code-length-code length (RFC limit)
@@ -360,32 +360,14 @@ def _emit(datas, ns, tok, tables, *, cap: int, with_index: bool):
     return out_u8, out_len
 
 
-def _block_checksum(datas: torch.Tensor, ns: torch.Tensor, check: str) -> torch.Tensor:
-    """(B,) int64 u32: the raw init-0 CRC register of each padded block for
-    "crc", the adler32 of its first n bytes for "adler"."""
-    if check == "crc":
-        return device_crc_register(datas)
-    if check != "adler":
-        raise ValueError(f"check must be 'crc' or 'adler', got {check!r}")
-    B, N = datas.shape
-    pos = torch.arange(N, device=datas.device)
-    n = ns[:, None]
-    db = torch.where(pos < n, datas.to(torch.int64), 0)
-    s = db.sum(-1)
-    wmod = torch.clamp(n - pos, min=0) % ADLER_MOD
-    group = (db * wmod).reshape(B, -1, 64).sum(-1) % ADLER_MOD
-    w = group.sum(-1) % ADLER_MOD
-    a = (1 + s) % ADLER_MOD
-    b = (ns % ADLER_MOD + w) % ADLER_MOD
-    return (b << 16) | a
-
-
 def encode_blocks_dyn(blocks: torch.Tensor, lens: torch.Tensor, *,
                       depth: int = 8, with_index: bool = False,
                       check: str = "adler", wcap: int = 32, stride: int = 1,
-                      lex_keys: int = 2, matcher: str = "lex"):
+                      lex_keys: int = 2, matcher: str = "lex",
+                      prefer_far: bool = False, run_ext: bool = True):
     """Encode a (B, N) uint8 block matrix with (B,) lengths, matching with
-    the lex or the hash matcher (``deflate_v2.match_and_parse_batch``).
+    the lex or the hash matcher (``deflate_v2.match_and_parse_batch``, with
+    its ``prefer_far`` and ``run_ext`` variants).
 
     Returns ``(outs (B, cap) uint8, metas (B, 2) int32)`` and, with
     ``with_index``, ``seg_bits (B, N/128) int32``, where
@@ -398,7 +380,7 @@ def encode_blocks_dyn(blocks: torch.Tensor, lens: torch.Tensor, *,
     ns = lens.to(torch.int64)
     is_tok, best_len, best_dist = match_and_parse_batch(
         blocks, ns, depth=depth, wcap=wcap, stride=stride, lex_keys=lex_keys,
-        matcher=matcher)
+        matcher=matcher, prefer_far=prefer_far, run_ext=run_ext)
     tok, lf, df, xl, xd = _tok_hist_from_match(blocks, ns, is_tok, best_len, best_dist)
     chks = _block_checksum(blocks, ns, check)
     tables = _build_tables(lf, df, xl, xd, ns)

@@ -5,7 +5,8 @@ wcap-byte window (big-endian words); ``adj[i]`` counts the equal leading
 bytes of sorted neighbours i-1 and i; the LCP to any sorted neighbour i±d is
 a running min of ``adj``, at distance ``ps[i] - ps[i±d]``. Both sort-order
 directions are scanned up to ``depth``; the best (len, dist) with
-0 < dist <= max_dist wins, the nearer distance on equal length.
+0 < dist <= max_dist wins, the nearer distance on equal length (the
+farther with ``prefer_far``, the reference's ``COMPU_LCP_TIE=far``).
 
 Layout: flat sorted arrays over the whole batch, ``block_elems`` lanes per
 block; neighbours never cross a block (``adj`` is 0 at every block start).
@@ -94,11 +95,12 @@ def check_blocks(block_elems: int, n: int) -> None:
 
 
 def lcp_candidates_torch(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
-                         max_dist: int, block_elems: int):
+                         max_dist: int, block_elems: int, prefer_far: bool = False):
     """Plain twin of the kernel (and port of ``lcp_candidates_xla``).
 
     ``words`` (W, n) int32 u32 bit patterns in sort order, ``ps`` (n,) int32
-    -> (best_len, best_dist), each (n,) int32."""
+    -> (best_len, best_dist), each (n,) int32. An equal length keeps the
+    nearer distance, or with ``prefer_far`` the farther one."""
     n = ps.shape[0]
     _check_args(depth, block_elems, n)
     w = u32.from_i32_bits(words)
@@ -112,7 +114,7 @@ def lcp_candidates_torch(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
 
     def upd(best_len, best_dist, l, dist):
         valid = (dist > 0) & (dist <= max_dist) & (l > 0)
-        tie = (l == best_len) & (dist < best_dist)
+        tie = (l == best_len) & ((dist > best_dist) if prefer_far else (dist < best_dist))
         better = valid & ((l > best_len) | tie)
         return (torch.where(better, l, best_len),
                 torch.where(better, dist, best_dist))
@@ -131,7 +133,7 @@ def lcp_candidates_torch(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
 
 
 def lcp_candidates_cuda(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
-                        max_dist: int, block_elems: int):
+                        max_dist: int, block_elems: int, prefer_far: bool = False):
     """The CUDA kernel (``csrc/lcp_candidates.cu``); same contract as
     :func:`lcp_candidates_torch`, for ``0 <= max_dist <= 2^24`` (the kernel
     packs a distance into 24 bits)."""
@@ -153,14 +155,14 @@ def lcp_candidates_cuda(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
         return best_len, best_dist
     err = _build.lib().compu_lcp_candidates(
         words.data_ptr(), W, ps.data_ptr(), best_len.data_ptr(),
-        best_dist.data_ptr(), n, block_elems, depth, max_dist,
+        best_dist.data_ptr(), n, block_elems, depth, max_dist, int(prefer_far),
         _build.stream_handle(ps))
     _build.check_launch(err, "lcp_candidates")
     return best_len, best_dist
 
 
 def lcp_candidates(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
-                   max_dist: int, block_elems: int):
+                   max_dist: int, block_elems: int, prefer_far: bool = False):
     """Best (len, dist) per sorted lane: the kernel on CUDA, the twin on
     the CPU."""
     kind = ps.device.type
@@ -170,4 +172,5 @@ def lcp_candidates(words: torch.Tensor, ps: torch.Tensor, *, depth: int,
         fn = lcp_candidates_torch
     else:
         raise ValueError(f"no lcp_candidates for device {ps.device}")
-    return fn(words, ps, depth=depth, max_dist=max_dist, block_elems=block_elems)
+    return fn(words, ps, depth=depth, max_dist=max_dist, block_elems=block_elems,
+              prefer_far=prefer_far)

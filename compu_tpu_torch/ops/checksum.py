@@ -7,7 +7,9 @@
   32x32 bit matrix (``zero_shift_operator``), so two runs merge with one
   matrix apply and an XOR (``crc32_combine``), and a register computed on a
   zero-padded block loses its padding by the inverse shift
-  (``crc_unshift``).
+  (``crc_unshift``). ``crc32`` is the lane-parallel form (slice-by-8 lanes
+  merged by a GF(2) tree), and ``fold_lane_registers`` merges the device's
+  lane registers the same way.
 
 Matrices are numpy arrays of 32 uint64 rows; row i is the image of basis
 vector i.
@@ -23,18 +25,24 @@ CRC32_POLY = 0xEDB88320  # reflected polynomial
 _BIT_IDX = np.arange(32, dtype=np.uint64)
 
 
-def _make_crc_table() -> np.ndarray:
-    """The classic byte table of the reflected CRC-32."""
-    table = np.zeros(256, dtype=np.uint32)
+def _make_crc_tables(n: int = 8) -> np.ndarray:
+    """Slice-by-n tables: T[0] is the classic byte table of the reflected
+    CRC-32; T[k] advances a byte seen k positions earlier past k zero
+    bytes."""
+    tables = np.zeros((n, 256), dtype=np.uint32)
     for i in range(256):
         c = i
         for _ in range(8):
             c = (c >> 1) ^ (CRC32_POLY if c & 1 else 0)
-        table[i] = c
-    return table
+        tables[0, i] = c
+    for k in range(1, n):
+        prev = tables[k - 1]
+        tables[k] = tables[0][prev & 0xFF] ^ (prev >> 8)
+    return tables
 
 
-CRC_TABLE = _make_crc_table()
+CRC_TABLES = _make_crc_tables()
+CRC_TABLE = CRC_TABLES[0]
 
 
 def adler32(data, value: int = 1) -> int:
@@ -160,3 +168,73 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     ``crc32_combine``): with finished crcs the conditioning terms cancel to
     ``shift(crc1, len2) ^ crc2``."""
     return (crc_shift(crc1 & 0xFFFFFFFF, len2) ^ crc2) & 0xFFFFFFFF
+
+
+def _gf2_apply_vec(mat: np.ndarray, vec: np.ndarray) -> np.ndarray:
+    """Apply one 32x32 GF(2) operator to many registers at once."""
+    bits = (vec[:, None].astype(np.uint64) >> _BIT_IDX[None, :]) & np.uint64(1)
+    return np.bitwise_xor.reduce(bits * mat[None, :], axis=1).astype(np.uint32)
+
+
+def _crc_serial(reg: int, data: np.ndarray) -> int:
+    """Raw register update over a short byte array, a byte at a time."""
+    crcs = np.array([reg], dtype=np.uint32)
+    for byte in data:
+        crcs = CRC_TABLE[(crcs ^ byte) & 0xFF] ^ (crcs >> 8)
+    return int(crcs[0])
+
+
+def _crc_lanes_slice8(grid: np.ndarray) -> np.ndarray:
+    """Raw CRC register (init 0) of each row of a (L, c) uint8 array, c a
+    multiple of 8, all rows advancing together (slice-by-8)."""
+    crcs = np.zeros(grid.shape[0], dtype=np.uint32)
+    g = grid.astype(np.uint32)
+    t0, t1, t2, t3, t4, t5, t6, t7 = CRC_TABLES
+    for j in range(0, grid.shape[1], 8):
+        x = crcs ^ (g[:, j] | (g[:, j + 1] << 8) | (g[:, j + 2] << 16) | (g[:, j + 3] << 24))
+        crcs = (t7[x & 0xFF] ^ t6[(x >> 8) & 0xFF] ^ t5[(x >> 16) & 0xFF] ^ t4[(x >> 24) & 0xFF]
+                ^ t3[g[:, j + 4]] ^ t2[g[:, j + 5]] ^ t1[g[:, j + 6]] ^ t0[g[:, j + 7]])
+    return crcs
+
+
+def crc32(data, value: int = 0) -> int:
+    """crc32 with gzip conventions, continuing from ``value`` (``zlib.crc32``).
+    The reference's lane-parallel form: below 16 KiB a byte at a time;
+    above, L contiguous lanes advance together (slice-by-8) and their
+    registers merge with a log2(L)-level GF(2) tree (each level shifts the
+    left half past the right half's length and XORs)."""
+    data = np.frombuffer(bytes(data), dtype=np.uint8)
+    n = len(data)
+    reg = (value ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    if n == 0:
+        return value & 0xFFFFFFFF
+    if n < 1 << 14:
+        return (_crc_serial(reg, data) ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    lanes = 1 << max(6, min(13, (n // 8192).bit_length()))
+    c = (n // lanes) & ~7  # bytes a lane, a multiple of 8
+    body = lanes * c
+    vals = _crc_lanes_slice8(data[:body].reshape(lanes, c))
+    op = zero_shift_operator(c)
+    while len(vals) > 1:
+        vals = _gf2_apply_vec(op, vals[0::2]) ^ vals[1::2]
+        op = _gf2_matmul(op, op)
+    r = crc_shift(reg, body) ^ int(vals[0])
+    if body < n:
+        r = _crc_serial(r, data[body:])
+    return (r ^ 0xFFFFFFFF) & 0xFFFFFFFF
+
+
+def fold_lane_registers(lane_regs: np.ndarray, lane_bytes: int,
+                        init_reg: int = 0xFFFFFFFF) -> int:
+    """Merge raw lane CRC registers (init 0, contiguous lanes of
+    ``lane_bytes`` each, a power-of-two count) into the stream register,
+    folding in ``init_reg`` at the front: the host half of the device's
+    lane-parallel crc32."""
+    vals = np.asarray(lane_regs).astype(np.uint32)
+    op = zero_shift_operator(lane_bytes)
+    while len(vals) > 1:
+        if len(vals) % 2:
+            raise ValueError("lane count must be a power of two")
+        vals = _gf2_apply_vec(op, vals[0::2]) ^ vals[1::2]
+        op = _gf2_matmul(op, op)
+    return int(crc_shift(init_reg, lane_bytes * len(lane_regs)) ^ int(vals[0]))

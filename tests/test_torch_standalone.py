@@ -23,17 +23,23 @@ FORBIDDEN = ("compu_tpu", "jax", "jaxlib", "bench")
 
 
 def test_port_and_smoke_imports_stand_alone(tmp_path):
-    """Every module of compu_tpu_torch, and chip_smoke's imports (the
-    module without its main), in a fresh interpreter started outside the
-    repository: none of the forbidden packages is loaded."""
+    """Every module of compu_tpu_torch (``parallel/mesh.py`` and ``entry.py``
+    among them), and chip_smoke's imports (the module without its main), in
+    a fresh interpreter started outside the repository: none of the
+    forbidden packages is loaded, and the imports start no process group,
+    no child process and no CUDA context."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, multiprocessing, pkgutil, sys\n"
+        "import torch\n"
         "import compu_tpu_torch\n"
         "for m in pkgutil.walk_packages(compu_tpu_torch.__path__, 'compu_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        "assert {'compu_tpu_torch.parallel.mesh', 'compu_tpu_torch.entry'} <= set(sys.modules)\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "assert not torch.cuda.is_initialized() and not multiprocessing.active_children()\n"
         "print('standalone-ok', len([m for m in sys.modules if m.startswith('compu_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -246,3 +252,27 @@ def test_block_index_bytes_equal_reference():
     assert blob == RefIndex(*fields).to_bytes()
     back = BlockIndex.from_bytes(blob)
     assert (back.raw_lengths, back.compressed_offsets, back.compressed_lengths) == fields
+
+
+def test_port_mesh_runs_stand_alone(tmp_path):
+    """The multi-device dry run on one gloo rank and a v2 block stream, in
+    a fresh interpreter: both check out and none of the forbidden packages
+    is loaded."""
+    code = (
+        "import sys, zlib\n"
+        "from compu_tpu_torch import BlockParallelEncoder, ZlibMode, make_block_encode_fn\n"
+        "from compu_tpu_torch.entry import dryrun_multichip\n"
+        "dryrun_multichip(1, device='cpu')\n"
+        f"data = open({str(ROOT / 'tests' / 'data' / 'alice29.txt')!r}, 'rb').read()[:40000]\n"
+        "fn = make_block_encode_fn(ZlibMode.Zlib, kernel='v2', device='cpu')\n"
+        "stream, _ = BlockParallelEncoder(fn, block_size=1 << 14, mode=ZlibMode.Zlib).encode(data)\n"
+        "assert zlib.decompress(stream) == data\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('mesh-standalone-ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "mesh-standalone-ok" in proc.stdout
