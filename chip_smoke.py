@@ -4,9 +4,9 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives eleven paths of the port over the 16 MB benchmark corpus
-(``compu_tpu_torch.utils.corpus.build_corpus``; 64 blocks of 256 KiB, in
-4 groups of 16, for the DEFLATE paths):
+Drives eleven device paths and five host paths of the port over the 16 MB
+benchmark corpus (``compu_tpu_torch.utils.corpus.build_corpus``; 64
+blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
 
 * **gzip_lex**, the flagship deployment: level-6 gzip with the segment
   index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``;
@@ -56,14 +56,27 @@ Drives eleven paths of the port over the 16 MB benchmark corpus
   corpus's 128 blocks of 128 KiB x 4 streams, the lane-sharded crc32 on a
   (1, 1) ("dp", "lane") mesh, then ``entry.dryrun_multichip(1)``. One card
   runs a world of one: NCCL refuses two ranks on one card, so the
-  cross-card leg is not run here.
+  cross-card leg is not run here;
+* the host backends, which launch no kernel (checked): **zlib_host**,
+  ``encoder.Interface.zlib()`` at level 6 in gzip mode, its stream decoded
+  by ``decoder.Interface.zlib()``, ``zlib_native()`` and stdlib zlib;
+  **zlib_native**, **zstd_native** and **brotli_native**, each encoder of
+  the host runtime (``compu_tpu_torch/runtime/csrc``, built by g++) decoded
+  by its own native decoder and by the port's Python decoder of the format
+  (the whole stream for zlib, with stdlib zlib too, and brotli; the first
+  1 MiB's frame for zstd); **gzip_decode_host**, gzip_lex's stream read
+  back by ``BlockParallelDecoder(host=True)``, one call into the runtime's
+  whole-block inflate a block. The zstd_device and brotli_device encodes
+  run their host stages in the same runtime (``native_enc.py`` of each).
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
 failure:
 
 1. report torch, CUDA and the card (name and power limit);
-2. build the CUDA kernels from ``compu_tpu_torch/csrc``;
+2. build the CUDA kernels from ``compu_tpu_torch/csrc`` and, beside them,
+   the host runtime from ``compu_tpu_torch/runtime/csrc`` (the ``native``
+   line: its path under ``_build/``, its build seconds, g++'s version);
 3. hold each kernel to its plain twin at each of its paths' shapes (the
    first 16 blocks, for B1-B3 also as the v2 route computes them and for
    B1 also with the far tie, ``prefer_far``, under ``other_shapes``, its
@@ -150,7 +163,15 @@ failure:
 9. encode the first 4 blocks on the CPU (the twins) and on the card, on
    each DEFLATE encode path (the first 16 on gzip_fixed_v2), and require
    equal bytes, metas and segment index;
-10. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``.
+10. encode ``tests/data/alice29.txt`` through ``Interface.zlib_device()``;
+11. (after 7) run the host paths: three encodes and three native decodes
+   a pair (one for ``Interface.zlib()`` and the Python decoders), every
+   decode giving its input; zstd_device (iv) holds the frame to
+   ``ZSTD_BYTES`` and brotli_device (ii) the stream to ``BROTLI_BYTES``,
+   the sizes of the Python host stages; then **native_twins**: every
+   helper of the runtime equal to its Python twin on the corpus's first
+   MiB (``optimal_parse`` and ``promote_rep`` of zstd, whose twins come
+   with the host route, held to the data instead).
 
 The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
@@ -178,7 +199,9 @@ last), decodes the gzip_lex and gzip_fixed_v2 streams with their index,
 the stdlib gzip stream (gzip_foreign_decode) and the zstd frame, once
 with every stage
 synchronised before and after (ms per stage; for gzip_decode and
-gzip_foreign_decode also the doubling rounds; for brotli_device the
+gzip_foreign_decode also the doubling rounds; for zstd_device the
+tokenizer calls, the sequences from the tokens, the literal and sequence
+sections, xxh64 and the rest; for brotli_device the
 tokenizer calls, the commands, the distance plan with the histograms, the
 context model, the prefix codes' descriptions with the header, the body's
 emission and the rest), and once under ``torch.profiler``. From the profile
@@ -199,6 +222,7 @@ import hashlib
 import json
 import math
 import multiprocessing
+import os
 import pathlib
 import re
 import statistics
@@ -215,9 +239,15 @@ from compu_tpu_torch import BlockParallelDecoder, BlockParallelEncoder, DecodeSt
 from compu_tpu_torch import ZlibOptions, _build, decoder, make_block_encode_fn
 from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface
 from compu_tpu_torch.formats.brotli import encode as brotli_encode_mod
+from compu_tpu_torch.formats.brotli.options import BrotliOptions
+from compu_tpu_torch.formats.deflate import deflate_encode
+from compu_tpu_torch.formats.deflate.options import ZlibStrategy
 from compu_tpu_torch.formats.deflate import device_inflate
 from compu_tpu_torch.formats.zstd import decode as zstd_decode_mod
 from compu_tpu_torch.formats.zstd import encode as zstd_encode_mod
+from compu_tpu_torch.formats.zstd import huff as zstd_huff
+from compu_tpu_torch.formats.zstd import native_enc as zstd_native_enc
+from compu_tpu_torch.formats.zstd import tables as zstd_tables
 from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
 from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
 from compu_tpu_torch.kernels import deflate_v2, deflate_v3, inflate_dyn, inflate_lut, u32
@@ -273,10 +303,11 @@ from compu_tpu_torch.kernels.zstd_seq import fse_seq_scan_cuda, fse_seq_scan_tor
 from compu_tpu_torch.entry import TERM, dryrun_multichip, free_port
 from compu_tpu_torch.formats.zstd.huff import HufEncoder
 from compu_tpu_torch.ops import checksum
-from compu_tpu_torch.ops.xxhash import xxh64
+from compu_tpu_torch.ops.xxhash import xxh64, xxh64_py
 from compu_tpu_torch.parallel import mesh as pmesh
 from compu_tpu_torch.parallel import scheduler
 from compu_tpu_torch.parallel.scheduler import BlockIndex, BlockState
+from compu_tpu_torch.runtime import native
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
 
 LEVEL = 6
@@ -299,6 +330,7 @@ ZSTD_OPTS = dict(device_literals=True, device_sequences=True)
 ZSTD_SPAN = 8 * ZSTD_BLOCK
 ZSTD_LCP = dict(depth=8, max_dist=(1 << 17) - 1, block_elems=ZSTD_SPAN)
 ZSTD_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
+ZSTD_BYTES = 5_739_836  # the frame of the corpus, as the Python host stages write it
 # The brotli path: Interface.brotli at its defaults (quality 9, window 22,
 # Generic): one 1 MiB meta-block a tokenizer call (B1 at depth 8, wcap 32,
 # two sort keys, max_dist 2^20). Its stream of the corpus is the JAX
@@ -334,7 +366,13 @@ PATHS = {
     "gzip_fixed_v2": ("lcp_candidates", "parse_cover", "emit_pack"),
     "gzip_fixed_v2_decode": ("inflate_scan",),
     "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack"),
+    # The host backends: they launch no kernel (checked: every count 0).
+    **{p: () for p in ("zlib_host", "zlib_native", "zstd_native", "brotli_native",
+                       "gzip_decode_host", "native_twins")},
 }
+HOST_PATHS = ("zlib_host", "zlib_native", "zstd_native", "brotli_native", "gzip_decode_host")
+# The first MiB of the corpus: the native_twins phase's input.
+TWIN_BYTES = 1 << 20
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
@@ -1854,6 +1892,9 @@ def zstd_device_path(corpus: bytes):
     blocks = walk_frame(frame, corpus)
     if blocks != -(-len(corpus) // ZSTD_BLOCK):
         raise AssertionError(f"{blocks} frame blocks for {len(corpus)} bytes")
+    if len(frame) != ZSTD_BYTES:
+        raise AssertionError(f"(iv) the frame is {len(frame)} bytes, not {ZSTD_BYTES}")
+    log(f"zstd_device (iv): the frame is {len(frame)} bytes, as with the Python host stages")
     sec = statistics.median(times)
     res = {"path": "zstd_device", "bytes": len(corpus), "frame_blocks": blocks,
            "tokenizer_calls": len(calls), "compressed": len(frame),
@@ -1992,10 +2033,11 @@ def zstd_decode_stage_ms(frame: bytes) -> dict:
 
 def zstd_stage_ms(corpus: bytes) -> dict:
     """One zstd_device encode with each stage synchronised before and
-    after: ms in the tokenizer calls, the literal sections, the sequence
-    sections (device stages inside), xxh64, and the rest of the encode."""
-    times = {"tokenizer": 0.0, "_literals_section": 0.0, "_sequences_section": 0.0,
-             "xxh64": 0.0}
+    after: ms in the tokenizer calls, the sequences from the tokens, the
+    literal sections, the sequence sections (device stages inside), xxh64,
+    and the rest of the encode."""
+    times = {"tokenizer": 0.0, "_sequences_from_tokens": 0.0, "_literals_section": 0.0,
+             "_sequences_section": 0.0, "xxh64": 0.0}
 
     def timed(name, fn):
         def wrapper(*args, **kw):
@@ -2007,7 +2049,7 @@ def zstd_stage_ms(corpus: bytes) -> dict:
             return out
         return wrapper
 
-    names = ("_literals_section", "_sequences_section", "xxh64")
+    names = ("_sequences_from_tokens", "_literals_section", "_sequences_section", "xxh64")
     saved = {n: getattr(zstd_encode_mod, n) for n in names}
     for n in names:
         setattr(zstd_encode_mod, n, timed(n, saved[n]))
@@ -2390,6 +2432,326 @@ def profile_main(corpus: bytes) -> None:
     log("profile " + json.dumps(res))
 
 
+def host_run(path: str, fn):
+    """``run_path`` for a host backend: it must launch no kernel at all."""
+    result, launches = run_path(path, fn)
+    if any(launches.values()):
+        raise AssertionError(f"host path {path} launched kernels: {launches}")
+    return result, launches
+
+
+def host_encode(make, data: bytes, runs: int = 1) -> tuple[bytes, list]:
+    """``runs`` one-shot encodes of ``data`` through a fresh ``make()``
+    each; every stream must be the same. Returns the stream and the
+    seconds of each."""
+    streams, times = [], []
+    for _ in range(runs):
+        vec = ByteVec()
+        t0 = time.perf_counter()
+        res = make().encode_vec_full(data, vec, EncodeOp.Finish)
+        times.append(time.perf_counter() - t0)
+        if res.status.name != "Finished":
+            raise AssertionError(f"encode did not finish: {res}")
+        streams.append(vec.data())
+    if any(s != streams[0] for s in streams):
+        raise AssertionError("two encodes gave different streams")
+    return streams[0], times
+
+
+def host_decode(make, stream: bytes, want: bytes, runs: int = 1) -> list:
+    """``runs`` one-shot decodes of ``stream`` through a fresh ``make()``
+    each; every one must finish with the whole stream consumed and give
+    ``want``. Returns the seconds of each."""
+    times = []
+    for _ in range(runs):
+        vec = ByteVec()
+        t0 = time.perf_counter()
+        res = make().decode_vec_full(stream, vec)
+        times.append(time.perf_counter() - t0)
+        if res.is_error or res.status is not DecodeStatus.Finished or res.input_remain:
+            raise AssertionError(f"decode did not finish: {res}")
+        if vec.data() != want:
+            raise AssertionError("a decode gave other bytes than the input")
+    return times
+
+
+def timed_stdlib(stream: bytes, want: bytes, wbits: int) -> float:
+    t0 = time.perf_counter()
+    if zlib.decompress(stream, wbits=wbits) != want:
+        raise AssertionError("stdlib zlib decodes the stream to other bytes")
+    return time.perf_counter() - t0
+
+
+def mbps(n: int, times: list) -> float:
+    return n / statistics.median(times) / 1e6
+
+
+def host_pairs(corpus: bytes) -> dict:
+    """The host backends over the corpus, none of which launches a kernel:
+
+    * zlib_host: ``Interface.zlib()`` at level 6, gzip; its stream decoded
+      by ``decoder.Interface.zlib()`` (the Python ``Inflate``),
+      ``zlib_native()`` and stdlib zlib;
+    * zlib_native, zstd_native, brotli_native: each encoder (3 encodes)
+      decoded by its own native decoder (3 decodes), and by the port's
+      Python decoder of the format (once): the whole stream for zlib and
+      brotli, the first 1 MiB's stream for zstd (its Python sequence
+      execution runs at ~0.2 MB/s); the zlib stream by stdlib zlib too.
+
+    Returns each path's measurements: encode and decode MB/s, the ratio."""
+    gzip6 = ZlibOptions(mode=ZlibMode.Gzip, level=LEVEL)
+    runs = {}
+
+    def zlib_host():
+        stream, enc_s = host_encode(lambda: Interface.zlib(gzip6), corpus)
+        return stream, enc_s, {
+            "zlib": host_decode(decoder.Interface.zlib, stream, corpus),
+            "zlib_native": host_decode(decoder.Interface.zlib_native, stream, corpus, 3),
+            "stdlib": [timed_stdlib(stream, corpus, 31) for _ in range(3)]}
+
+    def zlib_native():
+        stream, enc_s = host_encode(lambda: Interface.zlib_native(gzip6), corpus, 3)
+        return stream, enc_s, {
+            "zlib_native": host_decode(decoder.Interface.zlib_native, stream, corpus, 3),
+            "zlib": host_decode(decoder.Interface.zlib, stream, corpus),
+            "stdlib": [timed_stdlib(stream, corpus, 31) for _ in range(3)]}
+
+    def zstd_native():
+        stream, enc_s = host_encode(Interface.zstd_native, corpus, 3)
+        head = corpus[:1 << 20]
+        head_stream, _ = host_encode(Interface.zstd_native, head)
+        python = lambda: decoder.Interface.zstd(  # noqa: E731
+            ZstdDecodeOptions(device_literals=False), device="cpu")
+        return stream, enc_s, {
+            "zstd_native": host_decode(decoder.Interface.zstd_native, stream, corpus, 3),
+            "zstd_first_MiB": host_decode(python, head_stream, head)}
+
+    def brotli_native():
+        stream, enc_s = host_encode(Interface.brotli_native, corpus, 3)
+        return stream, enc_s, {
+            "brotli_native": host_decode(decoder.Interface.brotli_native, stream, corpus, 3),
+            "brotli": host_decode(decoder.Interface.brotli, stream, corpus)}
+
+    for path, fn in (("zlib_host", zlib_host), ("zlib_native", zlib_native),
+                     ("zstd_native", zstd_native), ("brotli_native", brotli_native)):
+        (stream, enc_s, dec_s), launches = host_run(path, fn)
+        res = {"path": path, "bytes": len(corpus), "compressed": len(stream),
+               "ratio": len(corpus) / len(stream), "median_s": statistics.median(enc_s),
+               "runs_s": enc_s, "MBps": mbps(len(corpus), enc_s),
+               "decode_MBps": {k: mbps(1 << 20 if k == "zstd_first_MiB" else len(corpus), v)
+                               for k, v in dec_s.items()},
+               "decode_runs_s": dec_s, "launches": launches, "runs_counted": len(enc_s)}
+        log("e2e " + json.dumps(res))
+        runs[path] = res
+    return runs
+
+
+def gzip_decode_host_path(corpus: bytes, stream: bytes, index) -> dict:
+    """gzip_lex's stream read back with its index by
+    ``BlockParallelDecoder(host=True)``: each block one call into the host
+    runtime's whole-block inflate, in a thread pool; one warm decode, then
+    three timed, each must give the corpus."""
+    dec = BlockParallelDecoder(block_size=BLOCK, host=True)
+
+    def decodes():
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            if dec.decode(stream, index) != corpus:
+                raise AssertionError("gzip_decode_host does not give the corpus")
+            times.append(time.perf_counter() - t0)
+        return times[1:]
+
+    times, launches = host_run("gzip_decode_host", decodes)
+    sec = statistics.median(times)
+    res = {"path": "gzip_decode_host", "bytes": len(corpus), "compressed": len(stream),
+           "ratio": len(corpus) / len(stream), "median_s": sec, "runs_s": times,
+           "MBps": len(corpus) / sec / 1e6, "launches": launches, "runs_counted": 3}
+    log("e2e " + json.dumps(res))
+    return res
+
+
+def execute_sequences(lits: bytes, seqs) -> bytes:
+    """The bytes of (literal length, distance, match length) sequences
+    over ``lits``, each match copied a byte at a time where it overlaps,
+    and the literals left after the last."""
+    out = bytearray()
+    at = 0
+    for ll, dist, ml in np.asarray(seqs).tolist():
+        out += lits[at: at + ll]
+        at += ll
+        if dist >= ml:
+            out += out[len(out) - dist: len(out) - dist + ml]
+        else:
+            for _ in range(ml):
+                out.append(out[-dist])
+    return bytes(out + lits[at:])
+
+
+def native_twins(corpus: bytes) -> dict:
+    """Each helper of the host runtime against its Python twin on the
+    corpus's first MiB, on this machine's build: the checksums, the DEFLATE
+    match finders, cover and squeeze, the zstd sequences, repeat offsets,
+    sequences bitstream, Huffman stream and FSE weight stream, the brotli
+    commands, distance plan and body. ``optimal_parse`` and ``promote_rep``
+    of zstd (no twin in the port yet) are held to the data: their tokens
+    tile the input and every match or promoted offset copies equal bytes.
+    Returns each helper's seconds, native and twin."""
+    data = corpus[:TWIN_BYTES]
+    arr = np.frombuffer(data, np.uint8)
+    report = {}
+
+    def check(name, got_fn, twin_fn, same=lambda a, b: a == b):
+        t0 = time.perf_counter()
+        got = got_fn()
+        t1 = time.perf_counter()
+        twin = twin_fn()
+        t2 = time.perf_counter()
+        if not same(got, twin):
+            raise AssertionError(f"native_twins: {name} differs from its twin")
+        report[name] = {"native_s": t1 - t0, "twin_s": t2 - t1}
+        return got
+
+    arrays_equal = lambda a, b: all(np.array_equal(np.asarray(x), np.asarray(y))  # noqa: E731
+                                    for x, y in zip(a, b))
+    check("crc32", lambda: checksum.crc32(data, 7), lambda: checksum.crc32_lanes(data, 7))
+    if checksum.crc32(data) != zlib.crc32(data) or checksum.adler32(data) != zlib.adler32(data):
+        raise AssertionError("native_twins: the checksums differ from stdlib zlib's")
+    check("adler32", lambda: checksum.adler32(data, 7), lambda: checksum.adler32_lanes(data, 7))
+    check("xxh64", lambda: xxh64(data, 3), lambda: xxh64_py(data, 3))
+    lens, dists = check("find_matches",
+                        lambda: deflate_encode.find_matches(arr, LEVEL, ZlibStrategy.Default),
+                        lambda: deflate_encode.find_matches_py(arr, LEVEL, ZlibStrategy.Default),
+                        arrays_equal)
+    check("find_matches_k",
+          lambda: deflate_encode.find_matches_k(arr, 9, 1 << 17, K=3, depth=24),
+          lambda: deflate_encode.find_matches_k_py(arr, 9, 1 << 17, K=3, depth=24),
+          arrays_equal)
+    nxt = np.arange(len(arr)) + np.where(lens >= 3, lens, 1)
+    check("greedy_cover", lambda: deflate_encode.greedy_cover(nxt),
+          lambda: deflate_encode.greedy_cover_py(nxt), np.array_equal)
+    check("optimal_parse", lambda: deflate_encode._optimal_parse(arr, lens, dists),
+          lambda: deflate_encode._optimal_parse(arr, lens, dists,
+                                                squeeze=deflate_encode._squeeze_py),
+          arrays_equal)
+
+    # zstd: the sections of the first MiB as one block of tokens at the
+    # zstd path's window.
+    tok = deflate_encode.tokenize(arr, LEVEL, ZlibStrategy.Default,
+                                  max_dist=ZSTD_LCP["max_dist"])
+    lits, seqs = check("seq_from_tokens",
+                       lambda: zstd_native_enc.seq_from_tokens(data, *tok),
+                       lambda: zstd_encode_mod._sequences_from_tokens_py(arr, *tok),
+                       lambda a, b: a[0] == b[0] and np.array_equal(np.stack(a[1], 1), b[1]))
+    seqs = np.stack(seqs, 1).astype(np.int64)
+    rep_in = [5, 9, 2]
+    of_values, _ = check(
+        "resolve_offsets", lambda: zstd_native_enc.resolve_offsets(seqs[:, 0], seqs[:, 1], rep_in),
+        lambda: zstd_encode_mod._resolve_offset_values(seqs.tolist(), rep_in),
+        lambda a, b: a[0].tolist() == list(b[0]) and a[1] == list(b[1]))
+    T = zstd_tables
+    llc = np.asarray([T.ll_code(int(v)) for v in seqs[:, 0]])
+    mlc = np.asarray([T.ml_code(int(v)) for v in seqs[:, 2]])
+    ofc = np.asarray([int(v).bit_length() - 1 for v in of_values])
+    tabs = [zstd_encode_mod._SeqTable(c, *a) for c, a in (
+        (llc, (T.LL_DEFAULT_DIST, T.LL_DEFAULT_LOG, T.MAX_LL_SYMBOL, T.MAX_LL_LOG)),
+        (mlc, (T.ML_DEFAULT_DIST, T.ML_DEFAULT_LOG, T.MAX_ML_SYMBOL, T.MAX_ML_LOG)),
+        (ofc, (T.OF_DEFAULT_DIST, T.OF_DEFAULT_LOG, T.MAX_OF_SYMBOL, T.MAX_OF_LOG)))]
+    check("seq_bitstream",
+          lambda: zstd_native_enc.seq_bitstream(
+              llc, mlc, ofc, seqs[:, 0] - T.LL_BASE[llc], T.LL_BITS[llc],
+              seqs[:, 2] - T.ML_BASE[mlc], T.ML_BITS[mlc], of_values - (1 << ofc), ofc,
+              *(t.enc for t in tabs)),
+          lambda: zstd_encode_mod._sequences_bitstream_py(seqs, llc, mlc, ofc, of_values, *tabs))
+    huf = zstd_huff.HufEncoder(np.bincount(np.frombuffer(lits, np.uint8), minlength=256))
+    check("huf_stream", lambda: zstd_native_enc.huf_stream(lits, huf.code, huf.nbits),
+          lambda: huf.encode_stream_py(lits))
+    weights = [int(w) for w in huf.nbits[huf.nbits > 0]][:120]
+    freqs = np.bincount(np.asarray(weights), minlength=2)
+    norm, log_ = zstd_huff.normalize_counts(freqs, len(weights), 6)
+    fse = zstd_huff.FseEncodeTable(norm, log_)
+    check("fse_pair_stream", lambda: zstd_native_enc.fse_pair_stream(weights, fse),
+          lambda: zstd_huff.fse_pair_stream_py(weights, fse))
+    # The host route's parse helpers, held to the data.
+    lk, dk = deflate_encode.find_matches_k(arr, 9, ZSTD_LCP["max_dist"], K=3, depth=24,
+                                           deflate_heuristics=False)
+    n = len(arr)
+    lk = np.minimum(lk, (n - np.arange(n))[:, None])
+    lk[lk < 3] = 0
+    t0 = time.perf_counter()
+    ptok = zstd_native_enc.optimal_parse(
+        data, 0, n, lk, dk, np.full(256, 8.0), np.full(256, 6.0),
+        np.log2(np.maximum(dk, 1) + 3) + 4.0, 3.0, [3, 4, 5, 6, 8, 16, 32, 64], 1)
+    report["zstd_optimal_parse"] = {"native_s": time.perf_counter() - t0, "twin_s": None}
+    ends = ptok[0] + np.maximum(ptok[1], 1)
+    if ptok[0][0] != 0 or not np.array_equal(ptok[0][1:], ends[:-1]) or ends[-1] != n:
+        raise AssertionError("native_twins: zstd optimal_parse's tokens do not tile the input")
+    plits, pseqs = zstd_encode_mod._sequences_from_tokens(arr, *ptok)
+    t0 = time.perf_counter()
+    promoted = zstd_native_enc.promote_rep(data, 0, pseqs, rep_in)
+    report["zstd_promote_rep"] = {"native_s": time.perf_counter() - t0, "twin_s": None}
+    for name, rows in (("optimal_parse", pseqs), ("promote_rep", promoted)):
+        if execute_sequences(plits, rows) != data:
+            raise AssertionError(f"native_twins: zstd {name}'s sequences give other bytes")
+    # brotli: one meta-block of the first MiB at its window.
+    btok = deflate_encode.tokenize(arr, LEVEL, ZlibStrategy.Default,
+                                   max_dist=BROTLI_LCP["max_dist"])
+    commands = check("commands_from_tokens",
+                     lambda: brotli_encode_mod._commands_from_tokens(*btok),
+                     lambda: brotli_encode_mod._commands_from_tokens_py(*btok), arrays_equal)
+    ring = [4, 11, 15, 16]
+    plan = check("plan_distances",
+                 lambda: brotli_encode_mod._plan_commands(*commands, ring, True),
+                 lambda: brotli_encode_mod._plan_commands(*commands, ring, False), arrays_equal)
+    start_a, ins_a = commands[:2]
+    tot = int(ins_a.sum())
+    cum = np.concatenate([[0], np.cumsum(ins_a)[:-1]])
+    lit_pos = np.repeat(start_a, ins_a) + np.arange(tot) - np.repeat(cum, ins_a)
+    cmap, lit_codes, cid_of_pos = brotli_encode_mod._context_model(
+        arr, lit_pos, arr[lit_pos], enabled=True, tail=b"")
+
+    def body(use_native):
+        sink = brotli_encode_mod.BitSink()
+        cmd_code, dist_code = brotli_encode_mod._write_meta_block_header(
+            sink, len(data), cmap, lit_codes, plan[6], plan[7])
+        brotli_encode_mod._emit_body(sink, data, b"\0\0", commands, plan[:6], cmd_code,
+                                     dist_code, lit_codes, cmap, cid_of_pos, use_native)
+        return bytes(sink.out), sink.acc, sink.nbits
+
+    check("emit_commands", lambda: body(True), lambda: body(False))
+    log("native_twins: " + json.dumps(report))
+    return report
+
+
+def host_cpu() -> str:
+    """The host CPU's model (from /proc/cpuinfo, else ``lscpu``, else the
+    platform module) and the cores this process may use: the host paths'
+    numbers are the CPU's."""
+    import platform
+
+    model = ""
+    with contextlib.suppress(OSError):
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            if key.strip().lower() in ("model name", "cpu model") and value.strip():
+                model = value.strip()
+                break
+    if not model:
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+            model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                          if line.lower().startswith("model name")), "")
+    model = model or platform.processor() or "model not reported"
+    return f"{model} ({platform.machine()}), {len(os.sched_getaffinity(0))} cores available"
+
+
+def timed_call(fn):
+    """``fn()`` and the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
 def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -2400,14 +2762,21 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0])
+    log(f"host cpu: {host_cpu()}")
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         smoke = pool.submit(_build.build, SMOKE_SOURCES, "libcompu_smoke")
+        host = pool.submit(timed_call, native.build)
         path = _build.build()
         smoke.result()
+        host_path, host_s = host.result()
     _build.lib()
+    native.lib()
     log(f"built {path.name} and this script's library in {time.perf_counter() - t0:.1f} s")
+    log(f"native {host_path} built in {host_s:.1f} s "
+        f"({'its own g++ per source, all at once, beside nvcc' if host_s > 0.5 else 'already built'}), "
+        f"{native.compiler_version()}")
     for line in _build.ptxas_report().splitlines():
         if line.startswith("==") or any(w in line for w in ("Compiling entry", "Used", "spill")):
             log("ptxas " + line.strip())
@@ -2441,12 +2810,15 @@ def main() -> None:
     runs["zstd_device"], frame, head_frame = zstd_device_path(corpus)
     runs["zstd_decode"], p2_entry = zstd_decode_path(corpus, frame, head_frame)
     runs["brotli_device"] = brotli_device_path(corpus)
+    runs.update(host_pairs(corpus))
+    runs["gzip_decode_host"] = gzip_decode_host_path(corpus, gz_stream, gz_index)
+    native_twins(corpus)
     kernels += p2_entry + p3_entry + p4_entry
     log("e2e side by side: " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
         for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", "gzip_fixed_v2",
                   "gzip_fixed_v2_decode", *HASH_PATHS, "mesh_encode", "zstd_device",
-                  "zstd_decode", "brotli_device")))
+                  "zstd_decode", "brotli_device", *HOST_PATHS)))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]

@@ -11,9 +11,14 @@ streams there, one lane per 128-byte segment of its index, and
 stream there, 48 speculative lanes a 512-bit chunk. The brotli encoder
 takes its LZ tokens from the same device stage and writes its prefix codes
 on the host; the brotli decoder, ``Detection`` and the stored format are
-host code. The host layer (framing, the streaming state machines, checksum
-algebra) is the port's own copy of ``compu_tpu``'s, under the same module
-names: the package imports nothing of ``compu_tpu`` and nothing of JAX.
+host code. The host backends are the reference's too: the Python DEFLATE
+pair (``encoder.Interface.zlib``) and the C++ host runtime
+(``runtime/native.py``, built with g++ at first use) with its zlib, zstd
+and brotli pairs (``*_native``), whose helpers the zstd and brotli device
+routes and the checksums call. The host layer (framing, the streaming
+state machines, checksum algebra) is the port's own copy of
+``compu_tpu``'s, under the same module names: the package imports nothing
+of ``compu_tpu`` and nothing of JAX.
 """
 
 from . import decoder, encoder

@@ -3,10 +3,12 @@
 The port's copy of ``compu_tpu/decoder.py``: ``Decoder`` owns one decode
 pipeline and exposes the raw layer (``decode``) and the convenience layer
 (``decode_vec``, ``decode_vec_full``, ``decode_buf``); ``Interface`` is a
-registry of pipeline factories with the port's constructors,
-``stored``, ``zlib_device`` (any deflate, zlib or gzip stream, inflated on
-the device), ``zstd`` and ``brotli``. ``ByteVec`` and the status types are re-exported so a caller
-names only this module.
+registry of pipeline factories with the port's constructors: ``stored``;
+``zlib`` and ``zlib_native`` (any deflate, zlib or gzip stream, inflated
+on the host by ``Inflate`` or the host runtime), ``zlib_device`` (the same,
+inflated on the device); ``zstd`` and ``zstd_native``; ``brotli`` and
+``brotli_native``. ``ByteVec`` and the status types are re-exported so a
+caller names only this module.
 """
 
 from __future__ import annotations
@@ -124,6 +126,25 @@ class Interface:
         return Decoder(stored.StoredDecoder())
 
     @staticmethod
+    def zlib(options=None) -> Decoder:
+        """Deflate, zlib or gzip streams from any encoder, inflated on the
+        host by ``Inflate`` a token at a time (the decoder does no device
+        work, so it takes no ``device``). ``options`` is a
+        ``ZlibDecodeOptions`` or a ``ZlibMode`` (default ``Auto``)."""
+        from .formats.deflate import pipeline
+
+        return Decoder(pipeline.DeflateDecoder(options))
+
+    @staticmethod
+    def zlib_native(options=None) -> Decoder:
+        """The same streams through the host runtime's C++ inflate
+        (``runtime/csrc/compu_inflate.cpp``), framing and trailer in
+        Python. Raises if the runtime cannot be built."""
+        from .formats.deflate import pipeline
+
+        return Decoder(pipeline.NativeDeflateDecoder(options))
+
+    @staticmethod
     def zlib_device(options=None, device=None) -> Decoder:
         """Deflate, zlib or gzip streams from any encoder, inflated on
         ``device`` (CUDA unless the caller passes ``"cpu"``, which runs the
@@ -145,6 +166,27 @@ class Interface:
         from .formats.zstd import pipeline
 
         return Decoder(pipeline.ZstdDecoder(options, device=device))
+
+    @staticmethod
+    def zstd_native(options=None) -> Decoder:
+        """Zstandard frames through the host runtime's C++ frame decoder
+        (``runtime/csrc/compu_zstd.cpp``: entropy tables, sequences,
+        window and xxh64). ``options`` is a ``ZstdDecodeOptions``, of which
+        it reads ``window_log_max``. Raises if the runtime cannot be
+        built."""
+        from .formats.zstd import pipeline
+
+        return Decoder(pipeline.NativeZstdDecoder(options))
+
+    @staticmethod
+    def brotli_native(options=None) -> Decoder:
+        """Brotli streams through the host runtime's C++ meta-block decoder
+        (``runtime/csrc/compu_brotli.cpp``), given the port's dictionary,
+        context table and transforms. ``options`` is ignored. Raises if
+        the runtime cannot be built."""
+        from .formats.brotli import pipeline
+
+        return Decoder(pipeline.NativeBrotliDecoder(options))
 
     @staticmethod
     def brotli(options=None) -> Decoder:

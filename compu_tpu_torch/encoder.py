@@ -1,11 +1,13 @@
-"""The streaming encoder over the port's device backend.
+"""The streaming encoder over the port's backends.
 
 The port's copy of ``compu_tpu/encoder.py::Encoder``: the 3-op protocol
 (Process/Flush/Finish) and its convenience layer (``encode_vec``,
 ``encode_vec_full``, ``encode_buf``). ``Interface`` is a registry of
-pipeline factories with the port's constructors, ``stored``,
-``zlib_device``, ``zstd`` and ``brotli``. ``ByteVec`` and the status types
-are re-exported so a caller names only this module.
+pipeline factories with the port's constructors: ``stored``; the host
+backends ``zlib``, ``zlib_native``, ``zstd_native`` and ``brotli_native``,
+which take no ``device``; and ``zlib_device``, ``zstd`` and ``brotli``
+over the device. ``ByteVec`` and the status types are re-exported so a
+caller names only this module.
 """
 
 from __future__ import annotations
@@ -113,6 +115,24 @@ class Interface:
         return Encoder(stored.StoredEncoder())
 
     @staticmethod
+    def zlib(options=None) -> Encoder:
+        """DEFLATE (zlib/gzip/raw framing by ``options.mode``, a
+        ``ZlibOptions``) on the host: ``deflate_encode.DeflateStream``, its
+        match finder and cover in the host runtime above 4 KiB."""
+        from .formats.deflate import pipeline
+
+        return Encoder(pipeline.DeflateEncoder(options))
+
+    @staticmethod
+    def zlib_native(options=None) -> Encoder:
+        """The same format from the host runtime's C++ deflate core
+        (``runtime/csrc/compu_deflate.cpp``); level 0 runs the Python
+        core. Raises if the runtime cannot be built."""
+        from .formats.deflate import pipeline
+
+        return Encoder(pipeline.NativeDeflateEncoder(options))
+
+    @staticmethod
     def zlib_device(options=None, block_size=None, device=None) -> Encoder:
         """DEFLATE (zlib/gzip/raw framing by ``options.mode``) with every
         256 KiB pipeline block encoded on ``device`` (CUDA by default)."""
@@ -131,6 +151,26 @@ class Interface:
         from .formats.zstd import pipeline
 
         return Encoder(pipeline.ZstdEncoder(options, device=device))
+
+    @staticmethod
+    def zstd_native(options=None) -> Encoder:
+        """Zstandard frames from the host runtime's standalone C++ encoder
+        (``runtime/csrc/compu_zstd_enc2.cpp``: hash-chain matcher, repeat
+        offsets, FSE sequence modes, 1/4-stream Huffman literals,
+        streaming xxh64), by ``options.level``, ``window_log`` and
+        ``checksum``. Raises if the runtime cannot be built."""
+        from .formats.zstd import pipeline
+
+        return Encoder(pipeline.NativeZstdEncoder(options))
+
+    @staticmethod
+    def brotli_native(options=None) -> Encoder:
+        """Brotli streams from the host runtime's standalone C++ encoder
+        (``runtime/csrc/compu_brotli_enc2.cpp``), by ``options.quality``
+        and ``window_bits``. Raises if the runtime cannot be built."""
+        from .formats.brotli import pipeline
+
+        return Encoder(pipeline.NativeBrotliEncoder(options))
 
     @staticmethod
     def brotli(options=None, device=None) -> Encoder:

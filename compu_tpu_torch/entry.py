@@ -70,13 +70,15 @@ def _dryrun_rank(rank: int, n: int, init_method: str, device: str) -> None:
 def _dryrun_checks(rank: int, n: int, dev: torch.device) -> None:
     """The reference's checks, on every rank: the total is the sum of the
     gathered lengths; the blocks and a final empty stored block decode to
-    the payloads (through ``decoder.Interface.zlib_device`` on this rank's
-    device, and stdlib ``zlib``); the adlers combine to the payloads'
+    the payloads (through the host ``Inflate``, as the reference's dry run
+    decodes them, and through ``decoder.Interface.zlib_device`` on this
+    rank's device and stdlib ``zlib``); the adlers combine to the payloads'
     adler32; on an even world of 2 or more, the lane-sharded crc32 of block
     0 over a (n/2, 2) ("dp", "lane") mesh folds to its crc32."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from . import decoder
+    from .formats.deflate.inflate import Inflate
     from .formats.deflate.options import ZlibMode
     from .ops import checksum
     from .parallel import mesh as pmesh
@@ -95,6 +97,10 @@ def _dryrun_checks(rank: int, n: int, dev: torch.device) -> None:
 
     stream = b"".join(every[i, : out_lens[i]].tobytes() for i in range(n)) + TERM
     expect = b"".join(payloads)
+    inf = Inflate(ZlibMode.Deflate)
+    _, finished = inf.pump(stream, 0)
+    if not finished or bytes(inf.sink) != expect:
+        raise AssertionError("the host Inflate does not decode the multi-device stream")
     out = bytearray(len(expect) + 16)
     res = decoder.Interface.zlib_device(ZlibMode.Deflate, device=dev).decode(stream, out)
     if res.status is not decoder.DecodeStatus.Finished or bytes(out[: len(expect)]) != expect:

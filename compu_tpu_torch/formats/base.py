@@ -78,6 +78,15 @@ class DecoderBackend:
         ``_staged`` (compaction); formats keeping absolute offsets into the
         staged buffer shift them here. Default: nothing keeps offsets."""
 
+    #: Optional zero-copy fast path. When set (a callable ``(inp, out) ->
+    #: (consumed, written, DecodeStatus) | None``), ``decode`` tries it
+    #: first whenever nothing is staged or pending: the backend may then
+    #: stream the caller's bytes straight through its state machine into
+    #: the caller's buffer. Returning None takes the staged path. The hook
+    #: may stage an unconsumed tail itself (``_staged``/``_staged_pos``)
+    #: and must set ``_finished`` once the trailer is verified.
+    _decode_direct = None
+
     # -- internal helpers -----------------------------------------------------
     def _drain(self, out) -> int:
         """Move pending bytes into ``out``; returns bytes written."""
@@ -112,6 +121,19 @@ class DecoderBackend:
         # soon as the caller offers output space.
         written = self._drain(out)
         consumed = 0
+        if (self._decode_direct is not None
+                and not self._finished
+                and self._staged_pos == len(self._staged)
+                and self._pending_pos == len(self._pending)):
+            try:
+                res = self._decode_direct(inp, out[written:])
+            except CodecFailure as failure:
+                self._error = DecodeError(failure.code)
+                return Decode(len(inp), len(out), self._error)
+            if res is not None:
+                consumed_d, written_d, status = res
+                return Decode(len(inp) - consumed_d,
+                              len(out) - written - written_d, status)
         backlog = len(self._pending) - self._pending_pos
         if not self._finished and backlog < self.pending_high_water:
             self._staged.extend(inp)

@@ -10,8 +10,11 @@ short codes, and optimal prefix codes per meta-block in simple or complex
 form. A final empty meta-block ends the stream, so data meta-blocks never
 carry ISLAST.
 
-The command building, the distance plan and the body emission are the
-reference's pure-Python loops, whose bytes equal its native helpers'.
+The command building, the distance plan and the body emission run in the
+host runtime (``native_enc.py``) for a meta-block of more than 256
+tokens, as the reference's do; their pure-Python loops
+(``_commands_from_tokens_py``, ``_distance_plan_py``, ``_emit_body_py``)
+are the twins, and write the same bits.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 from ...ops.huffman import canonical_codes, length_limited_lengths
 from ..base import CodecFailure
 from ..device_lz import DeviceTokenizer
+from . import native_enc
 from . import consts as C
 
 ERR_ENC = 450
@@ -418,13 +422,25 @@ def _context_model(arr: np.ndarray, lit_pos: np.ndarray, lit_vals: np.ndarray,
 
 
 # -- the meta-block's stages ------------------------------------------------
+#: The largest copy length a command codes (copy code base 2118 + 24 extra bits).
+MAX_COPY = C.COPY_BASE[-1] + (1 << C.COPY_EXTRA[-1]) - 1
+#: A meta-block of more tokens than this runs its stages in the host runtime.
+NATIVE_MIN_TOKENS = 256
+
+
 def _commands_from_tokens(tok_pos, tok_len, tok_dist):
     """The meta-block's commands as parallel (start, ins, cl, dist) arrays
     (dist -1 for a trailing literal-only command). Adjacent same-distance
     matches merge into one long copy (brotli's copy lengths reach far past
-    the matcher's 258), up to the largest copy code (base 2118 + 24 extra
-    bits)."""
-    max_copy = C.COPY_BASE[-1] + (1 << C.COPY_EXTRA[-1]) - 1
+    the matcher's 258), up to ``MAX_COPY``. The host runtime's loop above
+    ``NATIVE_MIN_TOKENS`` tokens, else ``_commands_from_tokens_py``."""
+    if len(tok_pos) > NATIVE_MIN_TOKENS:
+        return native_enc.commands_from_tokens(tok_pos, tok_len, tok_dist, MAX_COPY)
+    return _commands_from_tokens_py(tok_pos, tok_len, tok_dist)
+
+
+def _commands_from_tokens_py(tok_pos, tok_len, tok_dist):
+    """The Python twin of ``_commands_from_tokens``."""
     commands = []
     pending_start = 0
     pending = 0
@@ -438,7 +454,7 @@ def _commands_from_tokens(tok_pos, tok_len, tok_dist):
                 commands
                 and pending == 0
                 and commands[-1][3] == int(d)
-                and commands[-1][2] + int(l) <= max_copy
+                and commands[-1][2] + int(l) <= MAX_COPY
             ):
                 prev = commands[-1]
                 commands[-1] = (prev[0], prev[1], prev[2] + int(l), prev[3])
@@ -453,15 +469,9 @@ def _commands_from_tokens(tok_pos, tok_len, tok_dist):
     return ca[:, 0], ca[:, 1], ca[:, 2], ca[:, 3]
 
 
-def _plan_commands(start_a, ins_a, cl_a, dist_a, ring):
-    """The commands' insert and copy length codes, each copy's distance
-    coding (``_plan_distances``), the command symbols and the command and
-    distance histograms. Returns ``(ic, cc, cmd, dsym, dextra, dbits,
-    cmd_freq, dist_freq, ring)``: ``dsym`` is -2 for no distance, -1 for
-    the implicit ring[0]; ``ring`` is the ring after the meta-block."""
-    cl_eff = np.where(dist_a >= 0, cl_a, 2)
-    ic_arr = _length_codes_vec(C.INSERT_BASE, C.INSERT_EXTRA, ins_a)
-    cc_arr = _length_codes_vec(C.COPY_BASE, C.COPY_EXTRA, cl_eff)
+def _distance_plan_py(start_a, ins_a, cl_a, dist_a, ic_arr, cc_arr, ring):
+    """The Python twin of ``native_enc.plan_distances``: ``_plan_distances``
+    as (dsym, dextra, dbits, ring) arrays."""
     commands_t = [(int(s), int(i_), int(c), None if d < 0 else int(d))
                   for s, i_, c, d in zip(start_a, ins_a, cl_a, dist_a)]
     dist_plan, ring = _plan_distances(commands_t, ic_arr, cc_arr, ring)
@@ -474,6 +484,24 @@ def _plan_commands(start_a, ins_a, cl_a, dist_a, ring):
     dbits_a = np.asarray(
         [0 if p is None or p[0] == "imp" else p[2]
          for p in dist_plan], dtype=np.int64)
+    return dsym_a, dextra_a, dbits_a, ring
+
+
+def _plan_commands(start_a, ins_a, cl_a, dist_a, ring, use_native: bool):
+    """The commands' insert and copy length codes, each copy's distance
+    coding (the host runtime's ``plan_distances`` when ``use_native``,
+    else ``_distance_plan_py``), the command symbols and the command and
+    distance histograms. Returns ``(ic, cc, cmd, dsym, dextra, dbits,
+    cmd_freq, dist_freq, ring)``: ``dsym`` is -2 for no distance, -1 for
+    the implicit ring[0]; ``ring`` is the ring after the meta-block."""
+    cl_eff = np.where(dist_a >= 0, cl_a, 2)
+    ic_arr = _length_codes_vec(C.INSERT_BASE, C.INSERT_EXTRA, ins_a)
+    cc_arr = _length_codes_vec(C.COPY_BASE, C.COPY_EXTRA, cl_eff)
+    if use_native:
+        dsym_a, dextra_a, dbits_a, ring = native_enc.plan_distances(ic_arr, cc_arr, dist_a, ring)
+    else:
+        dsym_a, dextra_a, dbits_a, ring = _distance_plan_py(
+            start_a, ins_a, cl_a, dist_a, ic_arr, cc_arr, ring)
     imp_arr = dsym_a == -1
     pair_idx = _RANGE_LUT[ic_arr >> 3, cc_arr >> 3]
     if np.any((pair_idx < 0) & ~imp_arr):
@@ -525,12 +553,27 @@ def _write_meta_block_header(sink: BitSink, mlen: int, cmap, lit_codes, cmd_freq
     return cmd_code, dist_code
 
 
-def _emit_body(sink: BitSink, data: bytes, commands, plan, cmd_code, dist_code, lit_codes,
-               cmap, cid_of_pos) -> None:
-    """The meta-block's commands, one symbol at a time: each command's
-    symbol and length extras, its literals (each through the tree of its
-    context when the literals are modelled), and its distance symbol and
-    extra bits unless the command implies ring[0]."""
+def _emit_body(sink: BitSink, data: bytes, tail2: bytes, commands, plan, cmd_code, dist_code,
+               lit_codes, cmap, cid_of_pos, use_native: bool) -> None:
+    """The meta-block's commands into ``sink``: the host runtime's loop
+    when ``use_native`` (``tail2``, the two bytes before ``data``, give the
+    first literals' contexts), else ``_emit_body_py``."""
+    if not use_native:
+        _emit_body_py(sink, data, commands, plan, cmd_code, dist_code, lit_codes, cmap,
+                      cid_of_pos)
+        return
+    blob, sink.acc, sink.nbits = native_enc.emit_commands(
+        data, tail2, *commands, *plan, cmd_code, dist_code, lit_codes, cmap,
+        sink.acc, sink.nbits)
+    sink.out.extend(blob)
+
+
+def _emit_body_py(sink: BitSink, data: bytes, commands, plan, cmd_code, dist_code, lit_codes,
+                  cmap, cid_of_pos) -> None:
+    """The Python twin of the body's emission, one symbol at a time: each
+    command's symbol and length extras, its literals (each through the
+    tree of its context when the literals are modelled), and its distance
+    symbol and extra bits unless the command implies ring[0]."""
     start_a, ins_a, cl_a, dist_a = commands
     ic_arr, cc_arr, cmd_arr, dsym_a, dextra_a, dbits_a = plan
     for ci in range(len(start_a)):
@@ -621,9 +664,12 @@ class BrotliStreamEncoder:
     def _write_data_meta_block(self, data: bytes) -> None:
         mlen = len(data)
         arr = np.frombuffer(data, dtype=np.uint8)
-        commands = _commands_from_tokens(*self.tokenizer(data))
+        tokens = self.tokenizer(data)
+        use_native = len(tokens[0]) > NATIVE_MIN_TOKENS
+        commands = _commands_from_tokens(*tokens)
         start_a, ins_a = commands[:2]
-        *plan, cmd_freq, dist_freq, self._ring = _plan_commands(*commands, self._ring)
+        *plan, cmd_freq, dist_freq, self._ring = _plan_commands(*commands, self._ring,
+                                                                use_native)
 
         # Literal context modelling: every literal's context comes from the
         # two bytes before it, which at encode time are input bytes (the
@@ -644,9 +690,10 @@ class BrotliStreamEncoder:
             ctx_enabled = self.quality >= 5
         cmap, lit_codes, cid_of_pos = _context_model(
             arr, lit_pos_arr, lit_vals, enabled=ctx_enabled, tail=self._tail)
+        tail2 = (b"\x00\x00" + self._tail)[-2:]
         self._tail = data[-2:]
 
         cmd_code, dist_code = _write_meta_block_header(self.sink, mlen, cmap, lit_codes,
                                                        cmd_freq, dist_freq)
-        _emit_body(self.sink, data, commands, plan, cmd_code, dist_code, lit_codes, cmap,
-                   cid_of_pos)
+        _emit_body(self.sink, data, tail2, commands, plan, cmd_code, dist_code, lit_codes, cmap,
+                   cid_of_pos, use_native)

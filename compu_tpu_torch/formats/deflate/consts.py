@@ -1,6 +1,5 @@
-"""DEFLATE constants (RFC1951 §3.2.5-3.2.7; the port's copy of the part of
-``compu_tpu/formats/deflate/consts.py`` the device encode and the indexed
-decode use)."""
+"""DEFLATE constants (RFC1951 §3.2.5-3.2.7; the port's copy of
+``compu_tpu/formats/deflate/consts.py``)."""
 
 import numpy as np
 
@@ -37,6 +36,31 @@ CLEN_ORDER = np.array(
     [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
     dtype=np.int32,
 )
+
+
+def _make_length_code_table() -> np.ndarray:
+    """LENGTH_CODE[l] for l in 0..258 → litlen symbol (257..285)."""
+    table = np.zeros(MAX_MATCH + 1, dtype=np.int32)
+    for code in range(len(LENGTH_BASE)):
+        base = LENGTH_BASE[code]
+        upper = LENGTH_BASE[code + 1] if code + 1 < len(LENGTH_BASE) else MAX_MATCH
+        table[base:upper] = 257 + code
+    table[MAX_MATCH] = 285  # length 258 has its own code; 284 covers 227..257
+    return table
+
+
+def _make_dist_code_table() -> np.ndarray:
+    """DIST_CODE[d] for d in 0..32768 → distance symbol (0..29), d >= 1."""
+    table = np.zeros(WINDOW_SIZE + 1, dtype=np.int32)
+    for code in range(len(DIST_BASE)):
+        base = DIST_BASE[code]
+        upper = DIST_BASE[code + 1] if code + 1 < len(DIST_BASE) else WINDOW_SIZE + 1
+        table[base:upper] = code
+    return table
+
+
+LENGTH_CODE = _make_length_code_table()
+DIST_CODE = _make_dist_code_table()
 
 # Fixed-Huffman code lengths (RFC1951 §3.2.6), the two phantom symbols
 # 286 and 287 included.

@@ -1,6 +1,6 @@
 """zlib/deflate options: the port's copy of
-``compu_tpu/formats/deflate/options.py``, with only the fields the device
-encode reads on the encode side, and the decoder's options."""
+``compu_tpu/formats/deflate/options.py``, and the stream header that the
+framing writes from them."""
 
 from __future__ import annotations
 
@@ -18,17 +18,38 @@ class ZlibMode(enum.Enum):
     Auto = "auto"        # decode-side header auto-detection
 
 
+class ZlibStrategy(enum.Enum):
+    """Encoding strategies of the host encoders."""
+
+    Default = "default"
+    #: Favor literals over short/far matches (filtered/PNG-style data).
+    Filtered = "filtered"
+    #: Entropy coding only, no LZ77 matches.
+    HuffmanOnly = "huffman_only"
+    #: Only distance-1 matches (run-length encoding).
+    Rle = "rle"
+    #: Fixed Huffman tables only (no dynamic blocks).
+    Fixed = "fixed"
+
+
 @dataclasses.dataclass(frozen=True)
 class ZlibOptions:
-    """Encoder options: the framing, and ``level`` 0..9, which picks the
-    device matcher's ladder rung."""
+    """Encoder options: the framing; ``level`` 0..9, the match finder's
+    effort (0 = stored blocks only; on the device, the matcher's ladder
+    rung); and, for the host encoders, ``strategy`` and ``mem_level``,
+    which sizes the match finder's hash (mem_level + 8 bits, zlib's
+    memLevel: smaller values collide more; 8 is the full 16-bit hash)."""
 
     mode: ZlibMode = ZlibMode.Zlib
     level: int = 6
+    strategy: ZlibStrategy = ZlibStrategy.Default
+    mem_level: int = 8
 
     def __post_init__(self) -> None:
         if not 0 <= self.level <= 9:
             raise ValueError("compression level must be in 0..9")
+        if not 1 <= self.mem_level <= 9:
+            raise ValueError("mem_level must be in 1..9")
         if self.mode is ZlibMode.Auto:
             raise ValueError("Auto mode is decode-only")
 

@@ -12,10 +12,14 @@ checksum. With ``device_literals`` the 4-stream literal pack, and with
 (``kernels/zstd_literals.py``, ``kernels/zstd_seq.py``), byte for byte the
 host writers' output.
 
-The reference's host match finders (``deflate_encode.tokenize``, the
-optimal parse) are host work of the JAX package that the port does not
-take: a block needs a tokenizer. Its native entropy helpers are not
-carried over either; every host stage is the reference's pure-Python form.
+The host stages call the host runtime's loops (``native_enc.py``) where
+the reference calls its own: the sequences from a cover of more than 512
+tokens, the codes, repeat offsets and (when the sequences do not run on
+the device) the bitstream of a section of more than 64 sequences, and
+Huffman streams of more than 64 bytes. The pure-Python forms below stay
+as their twins. The reference's host match finders (the host route of
+``deflate_encode.tokenize`` and the optimal parse) are not taken here yet:
+a block needs a tokenizer.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 
 from ...ops.xxhash import xxh64
 from ..base import CodecFailure
+from . import native_enc
 from .fse import ForwardBitWriter, FseEncodeTable, write_norm_counts
 from .huff import HufEncoder, normalize_counts
 from . import tables as T
@@ -38,7 +43,19 @@ def _sequences_from_tokens(data, tok_pos, tok_len, tok_dist):
     """Collapse a token cover into zstd sequences (ll, offset, ml) plus the
     literal byte stream. Adjacent same-distance matches merge into one long
     sequence (the shared matcher caps matches at DEFLATE's 258; zstd match
-    lengths are unbounded, so merging recovers long runs)."""
+    lengths are unbounded, so merging recovers long runs). Above 512
+    tokens the host runtime's loop, whose sequences come as an (n, 3)
+    int64 array; else ``_sequences_from_tokens_py``."""
+    if len(tok_pos) > 512:
+        lits, (ll, off, ml) = native_enc.seq_from_tokens(bytes(data), tok_pos, tok_len, tok_dist)
+        return lits, np.stack([ll.astype(np.int64), off.astype(np.int64),
+                               ml.astype(np.int64)], axis=1)
+    return _sequences_from_tokens_py(data, tok_pos, tok_len, tok_dist)
+
+
+def _sequences_from_tokens_py(data, tok_pos, tok_len, tok_dist):
+    """The Python twin of ``_sequences_from_tokens``: a list of (ll, off,
+    ml) tuples."""
     lits = bytearray()
     seqs = []
     pending_lit = 0
@@ -273,10 +290,14 @@ def _resolve_offset_values(seqs, rep=None):
     return of_values, rep
 
 
+_POW2 = np.left_shift(np.int64(1), np.arange(63, dtype=np.int64))
+
+
 def _sequences_section(seqs, reuse: dict | None = None, device=None) -> bytes:
     """Sequences section: the count, the three channels' modes and table
     descriptions, and the bitstream, packed on ``device`` when one is
-    given, else by the host push loop."""
+    given, else by the host runtime (more than 64 sequences) or the host
+    push loop."""
     n = len(seqs)
     out = bytearray()
     if n < 128:
@@ -292,10 +313,23 @@ def _sequences_section(seqs, reuse: dict | None = None, device=None) -> bytes:
         return bytes(out)
 
     rep_in = reuse.get("rep") if reuse else None
-    ll_codes = [T.ll_code(ll) for ll, _, _ in seqs]
-    of_values, rep_out = _resolve_offset_values(seqs, rep_in)
-    of_codes = [_offset_code(v) for v in of_values]
-    ml_codes = [T.ml_code(ml) for _, _, ml in seqs]
+    use_native = n > 64
+    if use_native:
+        # Vectorised channel codes and the host runtime's repeat-offset
+        # resolution (the list forms below are their twins).
+        sa = np.asarray(seqs, dtype=np.int64)
+        ll_a, off_a, ml_a = sa[:, 0], sa[:, 1], sa[:, 2]
+        ll_codes = np.where(
+            ll_a < 16, ll_a, np.searchsorted(T.LL_BASE, ll_a, side="right") - 1)
+        ml_codes = np.where(
+            ml_a < 35, ml_a - 3, np.searchsorted(T.ML_BASE, ml_a, side="right") - 1)
+        of_values, rep_out = native_enc.resolve_offsets(ll_a, off_a, rep_in)
+        of_codes = np.searchsorted(_POW2, of_values, side="right") - 1
+    else:
+        ll_codes = [T.ll_code(ll) for ll, _, _ in seqs]
+        of_values, rep_out = _resolve_offset_values(seqs, rep_in)
+        of_codes = [_offset_code(v) for v in of_values]
+        ml_codes = [T.ml_code(ml) for _, _, ml in seqs]
     if reuse is not None:
         reuse["rep"] = rep_out
 
@@ -311,12 +345,31 @@ def _sequences_section(seqs, reuse: dict | None = None, device=None) -> bytes:
     out.extend(ml_t.header)
 
     if device is not None:
-        # Device twin of the push loop below: interleaved FSE state scan +
-        # bit pack on device, byte-identical (kernels/zstd_seq.py).
+        # Device twin of _sequences_bitstream_py: interleaved FSE state
+        # scan + bit pack on device, byte-identical (kernels/zstd_seq.py).
         out.extend(_sequences_bitstream_device(
             seqs, ll_codes, ml_codes, of_codes, of_values, ll_t, ml_t, of_t, device))
         return bytes(out)
 
+    if use_native:
+        # The host runtime's twin of _sequences_bitstream_py.
+        out.extend(native_enc.seq_bitstream(
+            ll_codes, ml_codes, of_codes,
+            ll_a - T.LL_BASE[ll_codes], T.LL_BITS[ll_codes],
+            ml_a - T.ML_BASE[ml_codes], T.ML_BITS[ml_codes],
+            of_values - _POW2[of_codes], of_codes, ll_t.enc, ml_t.enc, of_t.enc))
+        return bytes(out)
+
+    out.extend(_sequences_bitstream_py(seqs, ll_codes, ml_codes, of_codes, of_values,
+                                       ll_t, ml_t, of_t))
+    return bytes(out)
+
+
+def _sequences_bitstream_py(seqs, ll_codes, ml_codes, of_codes, of_values,
+                            ll_t, ml_t, of_t) -> bytes:
+    """The host push loop of the sequences' bitstream, the twin of
+    ``native_enc.seq_bitstream`` and of the device's pack."""
+    n = len(seqs)
     # Bitstream: ForwardBitWriter; push order is the exact reverse of the
     # decoder's read order (see decode.py::_execute_sequences).
     w = ForwardBitWriter()
@@ -351,25 +404,28 @@ def _sequences_section(seqs, reuse: dict | None = None, device=None) -> bytes:
         of_t.enc.flush(of_state, w)
     if ll_t.enc:
         ll_t.enc.flush(ll_state, w)
-    out.extend(w.finish())
-    return bytes(out)
+    return w.finish()
 
 
 def _sequences_bitstream_device(seqs, ll_codes, ml_codes, of_codes,
                                 of_values, ll_t, ml_t, of_t, device) -> bytes:
-    """Prepare the per-sequence arrays and run the device FSE scan + pack.
-    The pack's fields are 4-byte lanes, so an offset's extra field may
-    hold at most 24 bits (offset code 24, a window of ~2^24). The
+    """Prepare the per-sequence arrays (in numpy, from the host codes'
+    lists or the vectorised codes' arrays) and run the device FSE scan +
+    pack. The pack's fields are 4-byte lanes, so an offset's extra field
+    may hold at most 24 bits (offset code 24, a window of ~2^24). The
     reference then takes the host writer; the port raises. Device-LZ
     offsets stay at or below MAX_BLOCK + 3 (code 17)."""
-    of_xb = [_offset_code(v) for v in of_values]
-    if of_xb and max(of_xb) > 24:
-        raise ValueError(f"offset code {max(of_xb)} exceeds the device pack's 24 bits")
-    ll_x = [ll - int(T.LL_BASE[c]) for (ll, _, _), c in zip(seqs, ll_codes)]
-    ll_xbits = [int(T.LL_BITS[c]) for c in ll_codes]
-    ml_x = [ml - int(T.ML_BASE[c]) for (_, _, ml), c in zip(seqs, ml_codes)]
-    ml_xbits = [int(T.ML_BITS[c]) for c in ml_codes]
-    of_x = [v - (1 << oc) for v, oc in zip(of_values, of_xb)]
+    sa = np.asarray(seqs, dtype=np.int64).reshape(-1, 3)
+    ll_codes, ml_codes, of_codes, of_values = (
+        np.asarray(a, dtype=np.int64) for a in (ll_codes, ml_codes, of_codes, of_values))
+    of_xb = np.searchsorted(_POW2, of_values, side="right") - 1  # _offset_code, vectorised
+    if len(of_xb) and of_xb.max() > 24:
+        raise ValueError(f"offset code {of_xb.max()} exceeds the device pack's 24 bits")
+    ll_x = sa[:, 0] - T.LL_BASE[ll_codes]
+    ll_xbits = T.LL_BITS[ll_codes]
+    ml_x = sa[:, 2] - T.ML_BASE[ml_codes]
+    ml_xbits = T.ML_BITS[ml_codes]
+    of_x = of_values - _POW2[of_xb]
     from ...kernels.zstd_seq import encode_sequences_device
 
     return encode_sequences_device(

@@ -3,9 +3,11 @@
 literal streams, and the decode table.
 
 The port's copy of ``compu_tpu/formats/zstd/huff.py`` (``HufTable``,
-``decode_weights``, ``HufEncoder``, ``normalize_counts``). The reference's
-native weight-stream and literal-stream writers are not carried over: the
-port always takes the Python writers.
+``decode_weights``, ``HufEncoder``, ``normalize_counts``). The weight
+description's FSE stream, and a literal stream of more than 64 bytes, are
+written by the host runtime (``native_enc.fse_pair_stream``,
+``native_enc.huf_stream``), as the reference's are; ``fse_pair_stream_py``
+and ``HufEncoder.encode_stream_py`` are their Python twins.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 
 from ..base import CodecFailure
 from ...ops.huffman import length_limited_lengths
+from . import native_enc
 from .fse import (
     BackwardBitReader,
     BackwardBitWriter,
@@ -209,30 +212,9 @@ class HufEncoder:
         except CodecFailure:
             return None
         header = write_norm_counts(norm, table_log)
-        writer = ForwardBitWriter()
-        # Encode walks symbols backward, init-ing each state at its
-        # subsequence's last symbol; the decoder reads A-init, B-init,
-        # then per-symbol updates forward — exactly reverse push order.
-        state_a = state_b = None
-        for i in range(len(transmitted) - 1, -1, -1):
-            w = transmitted[i]
-            if i % 2 == 0:
-                state_a = (
-                    enc.init_state(w)
-                    if state_a is None
-                    else enc.encode(state_a, w, writer)
-                )
-            else:
-                state_b = (
-                    enc.init_state(w)
-                    if state_b is None
-                    else enc.encode(state_b, w, writer)
-                )
-        if state_a is None or state_b is None:
+        payload = native_enc.fse_pair_stream(transmitted, enc)
+        if payload is None:
             return None
-        enc.flush(state_b, writer)
-        enc.flush(state_a, writer)
-        payload = writer.finish()
         total = len(header) + len(payload)
         if total >= 128:
             return None
@@ -250,12 +232,41 @@ class HufEncoder:
         return blob
 
     def encode_stream(self, data: bytes) -> bytes:
+        """One backward literal stream: the host runtime's above 64 bytes,
+        else ``encode_stream_py``."""
+        if len(data) > 64:
+            return native_enc.huf_stream(data, self.code, self.nbits)
+        return self.encode_stream_py(data)
+
+    def encode_stream_py(self, data: bytes) -> bytes:
+        """The Python twin of ``encode_stream``."""
         writer = BackwardBitWriter()
         code = self.code
         nbits = self.nbits
         for b in data:
             writer.push(int(code[b]), int(nbits[b]))
         return writer.finish()
+
+
+def fse_pair_stream_py(transmitted, enc) -> bytes | None:
+    """The Python twin of ``native_enc.fse_pair_stream``: the weights
+    coded backward by two interleaved FSE states (A the even positions, B
+    the odd; the decoder reads A's init, B's init, then the updates
+    forward, the exact reverse of the push order). None for fewer than two
+    weights."""
+    writer = ForwardBitWriter()
+    state_a = state_b = None
+    for i in range(len(transmitted) - 1, -1, -1):
+        w = transmitted[i]
+        if i % 2 == 0:
+            state_a = enc.init_state(w) if state_a is None else enc.encode(state_a, w, writer)
+        else:
+            state_b = enc.init_state(w) if state_b is None else enc.encode(state_b, w, writer)
+    if state_a is None or state_b is None:
+        return None
+    enc.flush(state_b, writer)
+    enc.flush(state_a, writer)
+    return writer.finish()
 
 
 def normalize_counts(freqs: np.ndarray, total: int, max_log: int):

@@ -1,12 +1,14 @@
-"""zstd backends: the port's copies of ``ZstdEncoder`` and
-``ZstdDecoder`` from ``compu_tpu/formats/zstd/pipeline.py``, mapping the
-streaming Encoder and Decoder contracts onto the frame codec."""
+"""zstd backends: the port's copies of ``ZstdEncoder``, ``ZstdDecoder``,
+``NativeZstdEncoder`` and ``NativeZstdDecoder`` from
+``compu_tpu/formats/zstd/pipeline.py``, mapping the streaming Encoder and
+Decoder contracts onto the frame codec: the device-LZ encoder and the
+Python decoder, and the host runtime's standalone encoder and decoder."""
 
 from __future__ import annotations
 
 from ..base import DecoderBackend, EncoderBackend
 from .decode import ERRORS, ZstdFrameDecoder
-from .encode import ZstdStreamEncoder
+from .encode import MAX_BLOCK, ZstdStreamEncoder
 from .options import ZstdDecodeOptions, ZstdOptions
 
 
@@ -43,6 +45,33 @@ class ZstdEncoder(EncoderBackend):
         self._stream.reset()
 
 
+class NativeZstdEncoder(ZstdEncoder):
+    """Same format, the host runtime's standalone encoder
+    (``native_enc2.NativeZstdStream``), by ``options.level``,
+    ``window_log`` and ``checksum``: a second complete zstd encoder behind
+    the same interface. It does no device work."""
+
+    name = "zstd-native"
+    block_size = MAX_BLOCK
+
+    def __init__(self, options: ZstdOptions | None = None) -> None:
+        from .native_enc2 import NativeZstdStream
+
+        self.options = options or ZstdOptions()
+        EncoderBackend.__init__(self)
+        self._stream = NativeZstdStream(
+            level=self.options.level,
+            window_log=self.options.window_log,
+            checksum=self.options.checksum,
+        )
+
+    def _header(self) -> bytes:
+        return b""  # the frame header rides in the first compress_chunk
+
+    def _trailer(self) -> bytes:
+        return b""  # the closing block and checksum ride the final chunk
+
+
 class ZstdDecoder(DecoderBackend):
     """Frames through ``ZstdFrameDecoder``; with ``device_literals`` its
     4-stream literal sections decode on ``device`` (CUDA by default)."""
@@ -77,3 +106,28 @@ class ZstdDecoder(DecoderBackend):
 
     def _do_reset(self) -> None:
         self._frame = self._new_frame()
+
+
+class NativeZstdDecoder(ZstdDecoder):
+    """Same format, the host runtime's frame decoder
+    (``native_decode.NativeZstdFrame``: entropy tables, sequences, window
+    and xxh64 all in C++). It reads ``options.window_log_max`` and does no
+    device work."""
+
+    name = "zstd-native"
+
+    def __init__(self, options: ZstdDecodeOptions | None = None) -> None:
+        self.options = options or ZstdDecodeOptions()
+        DecoderBackend.__init__(self)
+        self._frame = self._new_frame()
+
+    def _new_frame(self):
+        from .native_decode import NativeZstdFrame
+
+        frame = NativeZstdFrame(window_log_max=self.options.window_log_max)
+        frame.sink_budget = self.pending_high_water
+        return frame
+
+    def _do_reset(self) -> None:
+        self._frame._reset_stream()
+        self._frame.sink_budget = self.pending_high_water

@@ -1,15 +1,17 @@
 """Checksum algebra on the host (the port's copy of the part of
 ``compu_tpu/ops/checksum.py`` it calls).
 
-* adler32 is a pair of modular sums (``adler32``, one numpy pass) with a
-  closed-form merge of two runs (``adler32_combine``).
+* adler32 is a pair of modular sums with a closed-form merge of two runs
+  (``adler32_combine``). ``adler32`` calls the host runtime
+  (``runtime/native.py``); ``adler32_lanes`` is its numpy twin.
 * crc32 is GF(2)-linear: a register is shifted past n zero bytes by one
   32x32 bit matrix (``zero_shift_operator``), so two runs merge with one
   matrix apply and an XOR (``crc32_combine``), and a register computed on a
   zero-padded block loses its padding by the inverse shift
-  (``crc_unshift``). ``crc32`` is the lane-parallel form (slice-by-8 lanes
-  merged by a GF(2) tree), and ``fold_lane_registers`` merges the device's
-  lane registers the same way.
+  (``crc_unshift``). ``crc32`` calls the host runtime; ``crc32_lanes`` is
+  its twin, the lane-parallel form (slice-by-8 lanes merged by a GF(2)
+  tree), and ``fold_lane_registers`` merges the device's lane registers
+  the same way.
 
 Matrices are numpy arrays of 32 uint64 rows; row i is the image of basis
 vector i.
@@ -18,6 +20,8 @@ vector i.
 from __future__ import annotations
 
 import numpy as np
+
+from ..runtime import native
 
 ADLER_MOD = 65521
 CRC32_POLY = 0xEDB88320  # reflected polynomial
@@ -46,9 +50,15 @@ CRC_TABLE = CRC_TABLES[0]
 
 
 def adler32(data, value: int = 1) -> int:
-    """adler32 of ``data`` continuing from ``value`` (``zlib.adler32``): a
-    sum and a weighted sum a 64 KiB chunk, exact in float64 (the weighted
-    sum stays below 2^53), merged in int64."""
+    """adler32 of ``data`` continuing from ``value`` (``zlib.adler32``), in
+    the host runtime."""
+    return native.adler32(data, value)
+
+
+def adler32_lanes(data, value: int = 1) -> int:
+    """The numpy twin of ``adler32``: a sum and a weighted sum a 64 KiB
+    chunk, exact in float64 (the weighted sum stays below 2^53), merged in
+    int64."""
     a = value & 0xFFFF
     b = (value >> 16) & 0xFFFF
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -198,8 +208,13 @@ def _crc_lanes_slice8(grid: np.ndarray) -> np.ndarray:
 
 
 def crc32(data, value: int = 0) -> int:
-    """crc32 with gzip conventions, continuing from ``value`` (``zlib.crc32``).
-    The reference's lane-parallel form: below 16 KiB a byte at a time;
+    """crc32 with gzip conventions, continuing from ``value``
+    (``zlib.crc32``), in the host runtime."""
+    return native.crc32(data, value)
+
+
+def crc32_lanes(data, value: int = 0) -> int:
+    """The twin of ``crc32``, the reference's lane-parallel form: below 16 KiB a byte at a time;
     above, L contiguous lanes advance together (slice-by-8) and their
     registers merge with a log2(L)-level GF(2) tree (each level shifts the
     left half past the right half's length and XORs)."""

@@ -1,8 +1,9 @@
-"""Canonical Huffman pieces (the port's copy of the part of
-``compu_tpu/ops/huffman.py`` it uses): optimal length-limited code lengths
+"""Canonical Huffman pieces (the port's copy of
+``compu_tpu/ops/huffman.py``): optimal length-limited code lengths
 (``length_limited_lengths``), RFC1951 canonical codes from lengths
 (``canonical_codes``) and the flat decode table indexed by the next
-LSB-first stream bits (``build_decode_table``)."""
+LSB-first stream bits (``build_decode_table``), and the Kraft check of a
+code's lengths (``validate_lengths``)."""
 
 from __future__ import annotations
 
@@ -93,3 +94,14 @@ def build_decode_table(lengths: np.ndarray, max_bits: int):
         symbols[idx] = sym
         lens[idx] = l
     return symbols, lens
+
+
+def validate_lengths(lengths: np.ndarray) -> bool:
+    """Kraft inequality check: a usable prefix code must not oversubscribe;
+    foreign streams with oversubscribed trees are corrupt."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    used = lengths[lengths > 0]
+    if len(used) == 0:
+        return True
+    kraft = np.sum(2.0 ** (-used.astype(np.float64)))
+    return kraft <= 1.0 + 1e-12

@@ -1,5 +1,6 @@
-"""XXH64, the zstd content checksum (the port's copy of
-``compu_tpu/ops/xxhash.py::xxh64_py``, exported as ``xxh64``).
+"""XXH64, the zstd content checksum: ``xxh64`` calls the host runtime
+(``runtime/native.py``), and ``xxh64_py`` is its pure-Python twin (the
+port's copy of ``compu_tpu/ops/xxhash.py``).
 
 The stripe chain is sequential: each 32-byte stripe folds into four
 rotating accumulators. Spec: https://github.com/Cyan4973/xxHash (XXH64).
@@ -8,6 +9,8 @@ rotating accumulators. Spec: https://github.com/Cyan4973/xxHash (XXH64).
 from __future__ import annotations
 
 import struct
+
+from ..runtime import native
 
 P1 = 0x9E3779B185EBCA87
 P2 = 0xC2B2AE3D27D4EB4F
@@ -28,6 +31,10 @@ def _round(acc: int, lane: int) -> int:
 def _merge_round(acc: int, val: int) -> int:
     acc ^= _round(0, val)
     return ((acc * P1) + P4) & MASK
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    return native.xxh64(data, seed)
 
 
 def xxh64_py(data: bytes, seed: int = 0) -> int:
@@ -75,5 +82,3 @@ def xxh64_py(data: bytes, seed: int = 0) -> int:
     h ^= h >> 32
     return h
 
-
-xxh64 = xxh64_py

@@ -16,7 +16,8 @@ host assembles ONE standard zlib/gzip stream:
 ``BlockParallelDecoder`` reads such a stream back with its index: on the
 device by default, each batch of 16 blocks one scan of kernel P3 and the
 expansion and resolution of ``kernels/inflate.py``, or on the host when
-asked for (``host=True``, stdlib ``zlib`` a block).
+asked for (``host=True``: the host runtime's whole-block inflate, one
+ctypes call a block, in a thread pool).
 
 The port has no host fallback either way: a failed device step, or a
 block whose output is implausible, marks the blocks failed and raises, so
@@ -28,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -187,8 +187,10 @@ class BlockParallelDecoder:
     The device route needs the index's ``segment_bits``; a batch that fails
     its consistency check raises ``ValueError``.
 
-    ``host=True`` decodes every block on the host with stdlib ``zlib``, in a
-    thread pool, and is never taken otherwise. ``host_fallback`` is accepted
+    ``host=True`` decodes every block on the host, one call into the host
+    runtime's C++ inflate a block (the call releases the GIL, so the
+    thread pool's workers decode in parallel), and is never taken
+    otherwise. ``host_fallback`` is accepted
     for the reference's signature and must stay False. A failure marks the
     blocks ``Failed`` and raises."""
 
@@ -333,10 +335,29 @@ def _stored_copy(blob: bytes, raw_len: int) -> bytes:
 
 
 def _host_inflate_block(blob: bytes, raw_len: int) -> bytes:
-    """One block (a raw deflate run ending in a sync flush) inflated by
-    stdlib ``zlib``, for the explicit host route."""
-    d = zlib.decompressobj(-15)
-    out = d.decompress(bytes(blob) + b"\x01\x00\x00\xff\xff")
-    if not d.eof or len(out) != raw_len:
-        raise ValueError(f"block decoded {len(out)} bytes, expected {raw_len}")
-    return out
+    """One block (a raw deflate run ending in a sync flush) inflated by one
+    ctypes call into the host runtime's whole-block C decoder, for the
+    explicit host route. Raises unless the block decodes to its
+    ``raw_len`` bytes and the stream's end."""
+    import ctypes
+
+    from ..runtime import native
+
+    # Terminate the non-final run so the state machine reaches its end.
+    payload = bytes(blob) + b"\x01\x00\x00\xff\xff"
+    lib = native.lib()
+    h = lib.compu_inflate_new()
+    try:
+        out = ctypes.create_string_buffer(raw_len + 8)
+        arr = (ctypes.c_ubyte * len(payload)).from_buffer_copy(payload)
+        consumed = ctypes.c_size_t(0)
+        written = ctypes.c_size_t(0)
+        st = lib.compu_inflate_run(
+            h, ctypes.cast(arr, ctypes.POINTER(ctypes.c_ubyte)), len(payload),
+            out, raw_len + 8, ctypes.byref(consumed), ctypes.byref(written))
+    finally:
+        lib.compu_inflate_free(h)
+    if st != 2 or written.value != raw_len:  # 2: the stream's end
+        raise ValueError(f"block decoded {written.value} bytes with status {st}, "
+                         f"expected {raw_len} and the end")
+    return out.raw[:raw_len]

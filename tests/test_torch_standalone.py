@@ -4,8 +4,10 @@ builder, the checksum algebra, the block index) give the reference's
 values on the CPU.
 """
 
+import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -276,3 +278,84 @@ def test_port_mesh_runs_stand_alone(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "mesh-standalone-ok" in proc.stdout
+
+
+def test_port_runtime_builds_and_loads_only_its_own(tmp_path):
+    """In a fresh interpreter the host backends run from the port's own
+    runtime: every compile reads a source under
+    ``compu_tpu_torch/runtime/csrc`` and writes under the build directory,
+    (the port's ``_build``, or the directory the test names), and the one
+    runtime library mapped into the process is the port's, under
+    ``compu_tpu_torch/_build`` (never the root ``csrc``'s)."""
+    code = (
+        "import subprocess, sys, zlib\n"
+        "cmds = []\n"
+        "real = subprocess.Popen\n"
+        "subprocess.Popen = lambda cmd, *a, **k: cmds.append(cmd) or real(cmd, *a, **k)\n"
+        "from compu_tpu_torch import decoder\n"
+        "from compu_tpu_torch.encoder import ByteVec, EncodeOp, Interface\n"
+        "from compu_tpu_torch.runtime import native\n"
+        f"native.build(build_dir={str(tmp_path / 'b')!r})\n"
+        "data = b'standalone runtime ' * 4000\n"
+        "for make in (Interface.zlib, Interface.zlib_native, Interface.zstd_native,\n"
+        "             Interface.brotli_native):\n"
+        "    vec = ByteVec(); make().encode_vec_full(data, vec, EncodeOp.Finish)\n"
+        "    assert len(vec.data()) < len(data)\n"
+        "out = ByteVec()\n"
+        "decoder.Interface.zlib_native().decode_vec_full(zlib.compress(data), out)\n"
+        "assert out.data() == data\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if 'libcompu_runtime' in l]\n"
+        "print('MAPS', sorted(set(maps)))\n"
+        "print('SRCS', sorted({a for c in cmds for a in c if a.endswith('.cpp')}))\n"
+        "print('OUTS', sorted({c[c.index('-o') + 1] for c in cmds if '-o' in c}))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = {k: ast.literal_eval(v) for k, v in
+             (line.split(" ", 1) for line in proc.stdout.splitlines())}
+    maps = lines["MAPS"]
+    assert len(maps) == 1
+    assert pathlib.Path(maps[0]).parent == ROOT / "compu_tpu_torch" / "_build"
+    srcs = [pathlib.Path(s) for s in lines["SRCS"]]
+    assert len(srcs) == 10
+    assert {s.parent for s in srcs} == {ROOT / "compu_tpu_torch" / "runtime" / "csrc"}
+    dirs = (tmp_path / "b", ROOT / "compu_tpu_torch" / "_build")
+    assert all(any(pathlib.Path(o).is_relative_to(d) for d in dirs) for o in lines["OUTS"])
+
+
+#: The port's copies of the root csrc differ in comments alone: the
+#: reference project's sources are named relative to it, without the
+#: directory it was checked out in, and one comment names its test harness
+#: "the partial-buffer tests".
+CSRC_COMMENT_EDITS = ((re.compile(r"/[a-z]+/(?=reference/src/)"), ""),
+                      (re.compile(r"(?<=the partial-buffer )[a-z]+ (?=tests pin)"), ""))
+
+
+def test_port_runtime_sources_equal_the_root_csrc():
+    """The port's ten C++ sources are the root ``csrc``'s, byte for byte but
+    for ``CSRC_COMMENT_EDITS`` inside ``//`` comments (the test reads both;
+    the package reads only its own)."""
+    port = sorted((ROOT / "compu_tpu_torch" / "runtime" / "csrc").glob("*.cpp"))
+    root = sorted((ROOT / "csrc").glob("*.cpp"))
+    assert [p.name for p in port] == [p.name for p in root] and len(port) == 10
+    edited = 0
+    for a, b in zip(port, root):
+        want = b.read_bytes().decode()
+        got = a.read_bytes().decode()
+        assert len(got.splitlines()) == len(want.splitlines()), a.name
+        for line_got, line_want in zip(got.splitlines(True), want.splitlines(True)):
+            if line_got == line_want:
+                continue
+            code = line_want[: line_want.index("//")]
+            assert line_got[: len(code)] == code, (a.name, line_want)
+            for pattern, new in CSRC_COMMENT_EDITS:
+                line_want = pattern.sub(new, line_want)
+            assert line_got == line_want, (a.name, line_got)
+            edited += 1
+    assert 0 < edited <= 16
+    text = "".join(p.read_text() for p in (ROOT / "compu_tpu_torch").rglob("*.py"))
+    assert "parent.parent.parent / \"csrc\"" not in text and "libcompu_runtime.so" not in text
