@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # the smoke run
     python3 chip_smoke.py --profile    # stage times and device idle share
 
-Drives eleven device paths and five host paths of the port over the 16 MB
+Drives twelve device paths and ten host paths of the port over the 16 MB
 benchmark corpus (``compu_tpu_torch.utils.corpus.build_corpus``; 64
 blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
 
@@ -30,7 +30,7 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   wcap 16, depth 32;
 * **adler_device**: ``adler32_device`` of the 64 blocks, one launch;
 * **zstd_device**: the device zstd encode, ``Interface.zstd(ZstdOptions(
-  device_literals=True, device_sequences=True))``:
+  device_lz=True, device_literals=True, device_sequences=True))``:
   16 tokenizer calls of 1 MiB (B1 and B2 at 2^20 lanes, depth 8, max_dist
   131,071), 128 frame blocks of 128 KiB, each with one FSE sequence scan
   (P1, ``csrc/fse_seq_scan.cu``), and the xxh64 checksum;
@@ -38,8 +38,8 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   ``decoder.Interface.zstd()`` (its default ``device_literals``), the
   frame blocks' 4-stream literal sections each one launch of P2
   (``csrc/huf_lit_decode.cu``), the sequences and xxh64 on the host;
-* **brotli_device**: the brotli encode, ``Interface.brotli()`` (quality
-  9, window 22, Generic): 16 meta-blocks of 1 MiB, each one tokenizer
+* **brotli_device**: the brotli encode, ``Interface.brotli(BrotliOptions(
+  device_lz=True))`` (quality 9, window 22, Generic): 16 meta-blocks of 1 MiB, each one tokenizer
   call (B1 and B2 at 2^20 lanes, depth 8, max_dist 2^20), its commands,
   distance plan, context model, prefix codes and bits written by the
   host's Python; the stream decoded back by ``decoder.Interface.brotli()``
@@ -67,7 +67,28 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   1 MiB's frame for zstd); **gzip_decode_host**, gzip_lex's stream read
   back by ``BlockParallelDecoder(host=True)``, one call into the runtime's
   whole-block inflate a block. The zstd_device and brotli_device encodes
-  run their host stages in the same runtime (``native_enc.py`` of each).
+  run their host stages in the same runtime (``native_enc.py`` of each);
+* the host routes and engines, which launch no kernel either (checked),
+  each stream the JAX reference's (``HOST_ROUTE_STREAMS``: its length and
+  sha256): **zstd_host**, ``Interface.zstd(ZstdOptions(level=3,
+  window_log=17, device_lz=False))``, and **zstd_host_l19**, level 19 over
+  the first 4 MiB (a cut, printed as such), each frame decoded by the
+  native zstd decoder (the card machine has no ``zstandard``);
+  **brotli_host**, ``Interface.brotli(BrotliOptions(quality=9,
+  window_bits=22, device_lz=False))``, decoded by the port's decoder and
+  by libbrotlidec where it loads; **zlib_host_parallel**,
+  ``BlockParallelEncoder(make_host_block_encode_fn(Gzip, 6))`` over the 64
+  blocks, decoded by stdlib zlib; **zstd_parallel**,
+  ``parallel_zstd_compress(corpus, level=3)``, every frame decoded by the
+  native decoder;
+* **gzip_v1**: the v1 block step, ``make_block_encode_fn(kernel="v1")``
+  (plain PyTorch on the card: the chain walk, fixed-Huffman blocks, the
+  lane crc; none of the nine kernels, checked) over the 64 blocks through
+  ``BlockParallelEncoder``: stdlib zlib decodes it, it is the CPU's
+  stream (``V1_STREAM``: its length and sha256), one step over the
+  first 16 blocks launches CUDA kernels under torch.profiler (counted),
+  and the CPU's step over them gives the card's bytes; then
+  ``byte_histogram`` of the corpus on the card equals ``np.bincount``.
 
 Each path names the kernels it must launch; the launch counts are set to 0
 just before a path runs and read just after. Phases, each raising on
@@ -133,9 +154,9 @@ failure:
    call's bytes and every match's bytes to equal those at its distance,
    (iii) the first 2 MiB encoded on the CPU (the plain versions) to equal
    the card's frame, and the frame to walk as 128 blocks to its checksum;
-   then decode that frame on zstd_decode (median of three; nothing is
-   left to warm) and require every decode to give the corpus with status
-   Finished, the first 2 MiB's CPU frame to decode on the CPU (P2's plain
+   then decode that frame on zstd_decode (one timed decode, a cut
+   printed as such: ``ZSTD_DECODE_CUT``; nothing is left to warm) and
+   require it to give the corpus with status Finished, the first 2 MiB's CPU frame to decode on the CPU (P2's plain
    version) to the bytes the card gives, and, after P2's check, the host
    literal route (``device_literals=False``) to give the corpus too;
 7. encode the corpus on brotli_device (one warm run, median of three) and
@@ -170,8 +191,14 @@ failure:
    ``ZSTD_BYTES`` and brotli_device (ii) the stream to ``BROTLI_BYTES``,
    the sizes of the Python host stages; then **native_twins**: every
    helper of the runtime equal to its Python twin on the corpus's first
-   MiB (``optimal_parse`` and ``promote_rep`` of zstd, whose twins come
-   with the host route, held to the data instead).
+   MiB (``optimal_parse`` and ``promote_rep`` of zstd held to the data;
+   their twins are held to them in the CPU tests);
+12. run the host routes and engines (three encodes each, zstd_host_l19
+   one) and gzip_v1 (one warm encode, three timed), with their checks.
+
+A line before the report gives the run's seconds from start to the
+report, the kernels' build included, with the card's name and power
+limit, as the side-by-side line of every path's MB/s and ratio does.
 
 The last two lines printed are the kernel report and the result, each one
 JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
@@ -259,11 +286,11 @@ from compu_tpu_torch.kernels.adler_tiles import (
     adler32_partials_torch,
 )
 from compu_tpu_torch.kernels.block_codec import (
+    _LEVEL,
     DEV_DEPTH,
     DEV_KEYS,
     DEV_STRIDE,
     DEV_WCAP,
-    HOST_DEPTH,
     _encode_blocks_batched,
 )
 from compu_tpu_torch.kernels.deflate_v2 import (
@@ -280,6 +307,7 @@ from compu_tpu_torch.kernels.deflate_v3 import (
     encode_blocks_dyn,
 )
 from compu_tpu_torch.kernels.emit_pack import emit_pack_cuda, emit_pack_torch
+from compu_tpu_torch.kernels.histogram import byte_histogram
 from compu_tpu_torch.kernels.inflate_scan import (
     NO_TOKEN,
     SEG,
@@ -306,7 +334,12 @@ from compu_tpu_torch.ops import checksum
 from compu_tpu_torch.ops.xxhash import xxh64, xxh64_py
 from compu_tpu_torch.parallel import mesh as pmesh
 from compu_tpu_torch.parallel import scheduler
-from compu_tpu_torch.parallel.scheduler import BlockIndex, BlockState
+from compu_tpu_torch.parallel.scheduler import (
+    BlockIndex,
+    BlockState,
+    make_host_block_encode_fn,
+    parallel_zstd_compress,
+)
 from compu_tpu_torch.runtime import native
 from compu_tpu_torch.utils.corpus import TEXT_PATH, build_corpus
 
@@ -326,11 +359,13 @@ MAX_DIST = 32768
 # The zstd path: the reference's device zstd encode at its defaults
 # (window_log 17: max_dist 131,071; 1 MiB tokenizer calls of depth 8, wcap
 # 32, two sort keys; 128 KiB frame blocks; the xxh64 checksum).
-ZSTD_OPTS = dict(device_literals=True, device_sequences=True)
+ZSTD_OPTS = dict(device_lz=True, device_literals=True, device_sequences=True)
 ZSTD_SPAN = 8 * ZSTD_BLOCK
 ZSTD_LCP = dict(depth=8, max_dist=(1 << 17) - 1, block_elems=ZSTD_SPAN)
 ZSTD_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
 ZSTD_BYTES = 5_739_836  # the frame of the corpus, as the Python host stages write it
+ZSTD_DECODE_CUT = ("one timed decode of the frame, not three: the host's sequence execution "
+                   "takes 60-90 s a decode")
 # The brotli path: Interface.brotli at its defaults (quality 9, window 22,
 # Generic): one 1 MiB meta-block a tokenizer call (B1 at depth 8, wcap 32,
 # two sort keys, max_dist 2^20). Its stream of the corpus is the JAX
@@ -346,7 +381,7 @@ BROTLI_CPU_BYTES = 2 << 20  # the head the CPU encodes for check (iii)
 # The v2 route: make_block_encode_fn(kernel="v2") at LEVEL matches with
 # match_and_parse_batch's defaults (wcap 32, two sort keys, stride 1) at
 # depth min(host ladder depth, 8), and writes fixed-Huffman blocks only.
-V2_DEPTH = min(HOST_DEPTH[LEVEL], 8)
+V2_DEPTH = min(_LEVEL[LEVEL][0], 8)
 V2_LCP = dict(depth=V2_DEPTH, max_dist=MAX_DIST, block_elems=BLOCK)
 V2_CPU_BLOCKS = 16  # the head the CPU encodes for its bytes check
 # The mesh path's zstd literal step: the corpus as 128 frame blocks of
@@ -366,11 +401,42 @@ PATHS = {
     "gzip_fixed_v2": ("lcp_candidates", "parse_cover", "emit_pack"),
     "gzip_fixed_v2_decode": ("inflate_scan",),
     "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack"),
-    # The host backends: they launch no kernel (checked: every count 0).
+    # The host backends, routes and engines: they launch no kernel
+    # (checked: every count 0).
     **{p: () for p in ("zlib_host", "zlib_native", "zstd_native", "brotli_native",
-                       "gzip_decode_host", "native_twins")},
+                       "gzip_decode_host", "native_twins", "zstd_host", "zstd_host_l19",
+                       "brotli_host", "zlib_host_parallel", "zstd_parallel")},
+    # The v1 step: plain PyTorch on the card, none of the nine kernels
+    # (checked); its CUDA kernels are counted under torch.profiler.
+    "gzip_v1": (),
 }
 HOST_PATHS = ("zlib_host", "zlib_native", "zstd_native", "brotli_native", "gzip_decode_host")
+HOST_ROUTES = ("zstd_host", "zstd_host_l19", "brotli_host", "zlib_host_parallel", "zstd_parallel")
+# zstd_host_l19's cut: level 19 over the corpus's first 4 MiB.
+ZSTD_L19_BYTES = 4 << 20
+# The host routes' streams of the corpus (of its first 4 MiB for
+# zstd_host_l19) are the JAX reference's: compu_tpu's Interface.zstd(
+# ZstdOptions(level=3 or 19, window_log=17)) and Interface.brotli(
+# BrotliOptions(quality=9, window_bits=22)) (device_lz off, their default),
+# BlockParallelEncoder(make_host_block_encode_fn(Gzip, 6), block_size=
+# 256 KiB) and parallel_zstd_compress(level=3) give these bytes, and so
+# does the port on the CPU (tests/test_torch_{zstd,brotli}_host.py and
+# tests/test_torch_host_engines.py hold the two equal on smaller inputs).
+HOST_ROUTE_STREAMS = {
+    "zstd_host": (6_002_256, "c745d4b8e3da5dae5f83ea34d0288badcdc3b3dd4076ac4e3ada3f8a636147aa"),
+    "zstd_host_l19": (1_269_942,
+                      "8a3b95fc362b128010496a8f49bc97450c890823c68395c207a4ec4bbb0128d2"),
+    "zstd_parallel": (3_817_032,
+                      "bab2b446bf5fe68f7728cfa7a74f1b61f4662c6cc5014ca2f47325d262e09171"),
+    "zlib_host_parallel": (5_910_375,
+                           "51c8d8deda269c6f72c77209a67b322c663b4d23ca822d379fbe5414a32f0871"),
+    "brotli_host": (3_934_866, "f6fd919ddca8ae441e5942dd3ab26dbc48a437f047b8ce7ca8550bc614869162"),
+}
+# gzip_v1's stream of the corpus: the port's v1 step on the CPU
+# (make_block_encode_fn(Gzip, 6, kernel="v1", device="cpu") through
+# BlockParallelEncoder at 256 KiB blocks); the reference's step raises, so
+# tests/test_torch_v1.py holds the port to its blocks one by one.
+V1_STREAM = (7_638_354, "220cd111eb8348b5d3314fde2dcde1d1c43f4b74c7ddba0a42f6de9269e44206")
 # The first MiB of the corpus: the native_twins phase's input.
 TWIN_BYTES = 1 << 20
 
@@ -1939,9 +2005,11 @@ def record_lane_inputs(fn):
 
 
 def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
-    """The zstd_device frame decoded on the card three times, timed (P2 is
-    built before; the first decode keeps its largest literal section's P2
-    arguments for the kernel report); each must give the corpus. Then the
+    """The zstd_device frame decoded on the card once, timed (P2 is built
+    before; the decode keeps its largest literal section's P2 arguments for
+    the kernel report); it must give the corpus. One run, not three
+    (``ZSTD_DECODE_CUT``): the host's sequence execution takes 60-90 s a
+    decode, and three of them took a third of the run. Then the
     first 2 MiB's CPU frame decodes on the CPU (P2's plain version) to the
     bytes the card gives, P2 is held to its twin on the kept section, and
     last the host literal route gives the corpus, so that nothing else runs
@@ -1957,7 +2025,7 @@ def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
 
     def decodes():
         first, kept = record_lane_inputs(timed_decode)
-        return [first] + [timed_decode() for _ in range(2)], kept
+        return [first], kept
 
     (runs, kept), launches = run_path("zstd_decode", decodes)
     if any(out != corpus for out, _ in runs):
@@ -1979,7 +2047,7 @@ def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
     if zstd_decode(frame, "cpu", device_literals=False) != corpus:
         raise AssertionError("the host literal route's decode differs from the corpus")
     t_host = time.perf_counter() - t0
-    log(f"zstd_decode: 3 card decodes give the corpus; the host literal route too "
+    log(f"zstd_decode: the card's decode gives the corpus; the host literal route too "
         f"({t_host:.1f} s); cpu == gpu decode of the first {len(head)} bytes "
         f"(cpu run {t_cpu:.1f} s)")
     sec = statistics.median(times)
@@ -1987,7 +2055,7 @@ def zstd_decode_path(corpus: bytes, frame: bytes, head_frame: bytes):
            "ratio": len(corpus) / len(frame), "median_s": sec, "runs_s": times,
            "MBps": len(corpus) / sec / 1e6, "host_literals_s": t_host,
            "p2_sections": kept["sections"], "p2_longest_lane_steps": kept["steps"],
-           "launches": launches, "runs_counted": 3}
+           "launches": launches, "runs_counted": 1, "cut": ZSTD_DECODE_CUT}
     log("e2e " + json.dumps(res))
     return res, kernel
 
@@ -2070,9 +2138,10 @@ def zstd_stage_ms(corpus: bytes) -> dict:
 
 def brotli_stream(data: bytes, device) -> bytes:
     """One brotli stream of ``data`` through ``Interface.brotli()`` (quality
-    9, window 22, Generic) on ``device``."""
+    9, window 22, Generic, ``device_lz``) on ``device``."""
     vec = ByteVec()
-    res = Interface.brotli(device=device).encode_vec_full(data, vec, EncodeOp.Finish)
+    res = Interface.brotli(BrotliOptions(device_lz=True), device=device).encode_vec_full(
+        data, vec, EncodeOp.Finish)
     if res.status.name != "Finished":
         raise AssertionError(f"brotli encode did not finish: {res}")
     return vec.data()
@@ -2571,6 +2640,177 @@ def gzip_decode_host_path(corpus: bytes, stream: bytes, index) -> dict:
     return res
 
 
+def zstd_native_frames(stream: bytes, want: bytes) -> float:
+    """A stream of one or more zstd frames through the port's native
+    decoder, frame by frame (Finished fires at each frame's end; the
+    decoder is reset for the next): raises unless every frame finishes
+    and together they give ``want``. Returns the seconds."""
+    t0 = time.perf_counter()
+    dec, out, rest, frames = decoder.Interface.zstd_native(), bytearray(), stream, 0
+    while rest:
+        vec = ByteVec()
+        res = dec.decode_vec_full(rest, vec)
+        if res.is_error or res.status is not DecodeStatus.Finished:
+            raise AssertionError(f"zstd frame {frames} did not finish: {res}")
+        out += vec.data()
+        rest = rest[len(rest) - res.input_remain:]
+        frames += 1
+        dec.reset()
+    if out != want:
+        raise AssertionError(f"the {frames} zstd frames give other bytes than the input")
+    return time.perf_counter() - t0
+
+
+def held_to_reference(path: str, stream: bytes) -> str:
+    """Raise unless ``stream`` is the JAX reference's stream of the same
+    input and options (``HOST_ROUTE_STREAMS``: its length and sha256)."""
+    sha = hashlib.sha256(stream).hexdigest()
+    if (len(stream), sha) != HOST_ROUTE_STREAMS[path]:
+        raise AssertionError(f"{path}: the stream ({len(stream)} bytes, sha256 {sha}) is not "
+                             f"the reference's {HOST_ROUTE_STREAMS[path]}")
+    return sha
+
+
+def host_routes(corpus: bytes) -> dict:
+    """The zstd and brotli host routes and the scheduler's host engines
+    over the corpus, none of which launches a kernel (checked), each
+    stream held to the reference's (``HOST_ROUTE_STREAMS``):
+
+    * zstd_host: ``Interface.zstd(ZstdOptions(level=3, window_log=17,
+      device_lz=False))``, 3 encodes, decoded by the native decoder (the
+      card machine has no ``zstandard``);
+    * zstd_host_l19: level 19 over the first ``ZSTD_L19_BYTES`` (a cut:
+      the cost-model parse runs at ~1 MB/s on the host), once, decoded;
+    * brotli_host: ``Interface.brotli(BrotliOptions(quality=9,
+      window_bits=22, device_lz=False))``, 3 encodes, decoded by the
+      port's decoder and by libbrotlidec where it loads;
+    * zlib_host_parallel: ``BlockParallelEncoder(make_host_block_encode_fn(
+      Gzip, 6), block_size=256 KiB)``, 3 encodes, stdlib zlib decodes;
+    * zstd_parallel: ``parallel_zstd_compress(corpus, level=3)``, 3
+      encodes, every frame decoded by the native decoder.
+
+    Returns each path's measurements."""
+    runs = {}
+    l19_head = corpus[:ZSTD_L19_BYTES]
+
+    def zstd_host():
+        opts = ZstdOptions(level=3, window_log=17, device_lz=False)
+        stream, enc_s = host_encode(lambda: Interface.zstd(opts), corpus, 3)
+        return stream, enc_s, {"zstd_native": host_decode(decoder.Interface.zstd_native,
+                                                          stream, corpus)}
+
+    def zstd_host_l19():
+        opts = ZstdOptions(level=19, window_log=17, device_lz=False)
+        stream, enc_s = host_encode(lambda: Interface.zstd(opts), l19_head)
+        return stream, enc_s, {"zstd_native": host_decode(decoder.Interface.zstd_native,
+                                                          stream, l19_head)}
+
+    def brotli_host():
+        opts = BrotliOptions(quality=9, window_bits=22, device_lz=False)
+        stream, enc_s = host_encode(lambda: Interface.brotli(opts), corpus, 3)
+        dec_s = {"brotli": host_decode(decoder.Interface.brotli, stream, corpus)}
+        lib = libbrotlidec()
+        log(f"brotli_host: libbrotlidec {'found' if lib else 'not found'} on this machine")
+        if lib:
+            t0 = time.perf_counter()
+            if libbrotli_decompress(lib, stream, len(corpus)) != corpus:
+                raise AssertionError("brotli_host: libbrotlidec decodes to other bytes")
+            dec_s["libbrotlidec"] = [time.perf_counter() - t0]
+        return stream, enc_s, dec_s
+
+    def engine_runs(encode, decode):
+        streams, enc_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            streams.append(encode())
+            enc_s.append(time.perf_counter() - t0)
+        if any(x != streams[0] for x in streams):
+            raise AssertionError("two encodes gave different streams")
+        return streams[0], enc_s, decode(streams[0])
+
+    def zlib_host_parallel():
+        enc = BlockParallelEncoder(make_host_block_encode_fn(ZlibMode.Gzip, LEVEL),
+                                   block_size=BLOCK, mode=ZlibMode.Gzip)
+        out = engine_runs(lambda: enc.encode(corpus)[0],
+                          lambda s: {"stdlib": [timed_stdlib(s, corpus, 31) for _ in range(3)]})
+        if any(st.state != "ok" for st in enc.block_statuses):
+            raise AssertionError("zlib_host_parallel: a block status is not ok")
+        return out
+
+    def zstd_parallel():
+        return engine_runs(lambda: parallel_zstd_compress(corpus, level=3),
+                           lambda s: {"zstd_native": [zstd_native_frames(s, corpus)]})
+
+    for path, fn, data in (("zstd_host", zstd_host, corpus),
+                           ("zstd_host_l19", zstd_host_l19, l19_head),
+                           ("brotli_host", brotli_host, corpus),
+                           ("zlib_host_parallel", zlib_host_parallel, corpus),
+                           ("zstd_parallel", zstd_parallel, corpus)):
+        (stream, enc_s, dec_s), launches = host_run(path, fn)
+        sha = held_to_reference(path, stream)
+        res = {"path": path, "bytes": len(data), "compressed": len(stream),
+               "ratio": len(data) / len(stream), "sha256": sha,
+               "median_s": statistics.median(enc_s), "runs_s": enc_s,
+               "MBps": mbps(len(data), enc_s),
+               "decode_MBps": {k: mbps(len(data), v) for k, v in dec_s.items()},
+               "decode_runs_s": dec_s, "launches": launches, "runs_counted": len(enc_s)}
+        if data is l19_head:
+            res["cut"] = (f"the first {len(data)} bytes of the corpus: level 19's parse runs "
+                          "at ~1 MB/s on the host")
+        log("e2e " + json.dumps(res))
+        runs[path] = res
+    return runs
+
+
+def gzip_v1_path(corpus: bytes, blocks: np.ndarray, lens: np.ndarray) -> dict:
+    """The v1 block step on the card (``make_block_encode_fn(kernel="v1")``,
+    plain PyTorch: the chain walk, fixed-Huffman blocks, the lane crc) over
+    the corpus's 64 blocks through ``BlockParallelEncoder``: one warm
+    encode, three timed; stdlib zlib gives the corpus back; one step over
+    the first group runs under torch.profiler and must launch CUDA kernels
+    (the step ran on the card; none of the nine hand kernels is on its
+    path); the CPU's step over the first group gives the card's bytes,
+    lengths and checks. Then ``byte_histogram`` of the corpus on the card
+    equals ``np.bincount``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = make_block_encode_fn(ZlibMode.Gzip, LEVEL, kernel="v1")
+    enc = BlockParallelEncoder(fn, block_size=BLOCK, mode=ZlibMode.Gzip)
+    (stream, _, times), launches = host_run("gzip_v1", lambda: timed_encodes(enc, corpus))
+    if zlib.decompress(stream, wbits=31) != corpus:
+        raise AssertionError("gzip_v1: the stream does not decode to the corpus")
+    sha = hashlib.sha256(stream).hexdigest()
+    if (len(stream), sha) != V1_STREAM:
+        raise AssertionError(f"gzip_v1: the stream ({len(stream)} bytes, sha256 {sha}) is not "
+                             f"the CPU's {V1_STREAM}")
+    g = len(lens) // GROUPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dev = fn(blocks[:g], lens[:g])
+        torch.cuda.synchronize()
+    cuda_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "Memset")))
+    if cuda_kernels == 0:
+        raise AssertionError("gzip_v1: the step launched no CUDA kernel")
+    t0 = time.perf_counter()
+    cpu = make_block_encode_fn(ZlibMode.Gzip, LEVEL, kernel="v1", device="cpu")(blocks[:g],
+                                                                               lens[:g])
+    t_cpu = time.perf_counter() - t0
+    if not (np.array_equal(cpu[1], dev[1]) and np.array_equal(cpu[2], dev[2])
+            and all(a.tobytes() == b.tobytes() for a, b in zip(cpu[0], dev[0]))):
+        raise AssertionError("gzip_v1: the CPU's step and the card's differ on the first group")
+    log(f"gzip_v1: the stream is the CPU's, {len(stream)} bytes, sha256 {sha}; "
+        f"{cuda_kernels} CUDA kernels in one step over {g} blocks; cpu == gpu bytes, lengths "
+        f"and crc32s of those blocks (cpu run {t_cpu:.1f} s)")
+    hist = byte_histogram(torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).cuda())
+    if not np.array_equal(hist.cpu().numpy(), np.bincount(np.frombuffer(corpus, np.uint8),
+                                                          minlength=256)):
+        raise AssertionError("byte_histogram on the card differs from np.bincount")
+    log(f"byte_histogram: the corpus's {len(corpus)} bytes on the card equal np.bincount")
+    return summary("gzip_v1", corpus, stream, times, launches, cuda_kernels=cuda_kernels,
+                   last_timings=fn.last_timings)
+
+
 def execute_sequences(lits: bytes, seqs) -> bytes:
     """The bytes of (literal length, distance, match length) sequences
     over ``lits``, each match copied a byte at a time where it overlaps,
@@ -2753,6 +2993,7 @@ def timed_call(fn):
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke run needs one GPU")
@@ -2813,12 +3054,14 @@ def main() -> None:
     runs.update(host_pairs(corpus))
     runs["gzip_decode_host"] = gzip_decode_host_path(corpus, gz_stream, gz_index)
     native_twins(corpus)
+    runs.update(host_routes(corpus))
+    runs["gzip_v1"] = gzip_v1_path(corpus, blocks, lens)
     kernels += p2_entry + p3_entry + p4_entry
-    log("e2e side by side: " + ", ".join(
+    log(f"e2e side by side ({smi.splitlines()[0]}): " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
         for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", "gzip_fixed_v2",
                   "gzip_fixed_v2_decode", *HASH_PATHS, "mesh_encode", "zstd_device",
-                  "zstd_decode", "brotli_device", *HOST_PATHS)))
+                  "zstd_decode", "brotli_device", *HOST_PATHS, *HOST_ROUTES, "gzip_v1")))
     for k in kernels:
         for entry in (k, *k.get("other_paths", ())):
             run = runs[entry["path"]]
@@ -2838,6 +3081,8 @@ def main() -> None:
     if leaked:
         raise AssertionError(f"the JAX package or JAX was imported: {leaked[:5]}")
 
+    log(f"run: {time.perf_counter() - t_run:.1f} s from start to the report, the kernels' "
+        f"build included ({smi.splitlines()[0]})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

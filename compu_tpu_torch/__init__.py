@@ -10,8 +10,10 @@ streams there, one lane per 128-byte segment of its index, and
 ``decoder.Interface.zlib_device`` inflates any deflate, zlib or gzip
 stream there, 48 speculative lanes a 512-bit chunk. The brotli encoder
 takes its LZ tokens from the same device stage and writes its prefix codes
-on the host; the brotli decoder, ``Detection`` and the stored format are
-host code. The host backends are the reference's too: the Python DEFLATE
+on the host; the zstd and brotli encoders take the reference's host match
+finders and parses instead when asked (``device_lz=False``). The brotli
+decoder, ``Detection``, the stored format and the scheduler's host
+engines are host code; the v1 block step is plain PyTorch on the device. The host backends are the reference's too: the Python DEFLATE
 pair (``encoder.Interface.zlib``) and the C++ host runtime
 (``runtime/native.py``, built with g++ at first use) with its zlib, zstd
 and brotli pairs (``*_native``), whose helpers the zstd and brotli device

@@ -143,11 +143,12 @@ class Interface:
 
     @staticmethod
     def zstd(options=None, device=None) -> Encoder:
-        """Zstandard frames over the device LZ stage, on ``device`` (CUDA
-        by default): the port has no host match finder. ``options`` is a
-        ``ZstdOptions``, whose ``device_literals`` and ``device_sequences``
-        move the literal streams and the sequences bitstream to the device
-        too."""
+        """Zstandard frames. ``options`` is a ``ZstdOptions``: by default
+        (``device_lz=True``) the LZ stage runs on ``device`` (CUDA by
+        default); ``device_lz=False`` takes the reference's host match
+        finders and parse by ``level`` and ``strategy``, which touch no
+        device. ``device_literals`` and ``device_sequences`` move the
+        literal streams and the sequences bitstream to the device too."""
         from .formats.zstd import pipeline
 
         return Encoder(pipeline.ZstdEncoder(options, device=device))
@@ -174,11 +175,13 @@ class Interface:
 
     @staticmethod
     def brotli(options=None, device=None) -> Encoder:
-        """Brotli streams over the device LZ stage, on ``device`` (CUDA by
-        default): the port has no host match finder. ``options`` is a
-        ``BrotliOptions`` (quality, mode, window_bits); each 1 MiB pipeline
-        block is one meta-block and one tokenizer call, its prefix codes
-        and bits written on the host."""
+        """Brotli streams. ``options`` is a ``BrotliOptions`` (quality,
+        mode, window_bits, device_lz); each 1 MiB pipeline block is one
+        meta-block, its prefix codes and bits written on the host. By
+        default (``device_lz=True``) its LZ tokens come from one tokenizer
+        call on ``device`` (CUDA by default); ``device_lz=False`` takes the
+        reference's host match finder and parse by quality, and touches no
+        device."""
         from .formats.brotli import pipeline
 
         return Encoder(pipeline.BrotliEncoder(options, device=device))

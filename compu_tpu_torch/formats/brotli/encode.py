@@ -1,9 +1,12 @@
-"""Brotli encoder (RFC 7932) over the device LZ stage: the port's copy of
-the device route of ``compu_tpu/formats/brotli/encode.py``.
+"""Brotli encoder (RFC 7932): the port's copy of
+``compu_tpu/formats/brotli/encode.py``.
 
 Each meta-block of up to 1 MiB takes its LZ tokens from one
-``DeviceTokenizer`` call (kernels B1 and B2 on the device) and is written on
-the host: adjacent same-distance matches merged into long copies, one block
+``DeviceTokenizer`` call (kernels B1 and B2 on the device; the default),
+or on the host route from the host match finder and parse
+(``deflate_encode.tokenize`` at the quality's level, with deeper chain
+walks and a hash-6 tier at quality 10 and 11), and is written on the
+host: adjacent same-distance matches merged into long copies, one block
 type per category, the UTF8 literal context model from quality 5 (Text:
 quality 2), explicit distances (NPOSTFIX=0, NDIRECT=0) beside the ring's
 short codes, and optimal prefix codes per meta-block in simple or complex
@@ -23,6 +26,8 @@ import numpy as np
 
 from ...ops.huffman import canonical_codes, length_limited_lengths
 from ..base import CodecFailure
+from ..deflate.deflate_encode import tokenize
+from ..deflate.options import ZlibStrategy
 from ..device_lz import DeviceTokenizer
 from . import native_enc
 from . import consts as C
@@ -596,22 +601,24 @@ def _emit_body_py(sink: BitSink, data: bytes, commands, plan, cmd_code, dist_cod
 
 
 class BrotliStreamEncoder:
-    """Meta-block streaming encoder with cross-chunk bit carry, its LZ
-    stage on ``device`` (CUDA by default; ``"cpu"`` runs the kernels'
-    plain versions).
+    """Meta-block streaming encoder with cross-chunk bit carry. With
+    ``device_lz`` its LZ stage runs on ``device`` (CUDA by default;
+    ``"cpu"`` runs the kernels' plain versions); without, on the host,
+    and no tokenizer is made.
 
     The tokenizer is made with the stream's header, for the window the
     header writes: a one-shot input of at most 64 KiB is written with
-    WBITS=16, so its matches reach at most 65,520 back. (The reference
-    builds its tokenizer once for the configured window, so such a stream
-    may hold a distance its window does not allow, and it keeps the cut
-    window after ``reset``.)"""
+    WBITS=16, so its matches reach at most 65,520 back, as the host
+    route's do. (The reference builds its tokenizer once for the
+    configured window, so such a stream may hold a distance its window
+    does not allow, and it keeps the cut window after ``reset``.)"""
 
     def __init__(self, quality: int = 9, window_bits: int = 22, mode=None,
-                 device=None) -> None:
+                 device=None, device_lz: bool = True) -> None:
         self.quality = quality
         self.window_bits = window_bits
         self.device = device
+        self.device_lz = device_lz
         # The input-type hint drives the literal context model: Text
         # enables the UTF8 context map from quality 2, Font disables it,
         # Generic enables it from quality 5.
@@ -640,8 +647,9 @@ class BrotliStreamEncoder:
             self.sink.push(0, 3)
             self.sink.push(w - 8, 3)
         self.wbits = w
-        self.tokenizer = DeviceTokenizer(TOKENIZER_SPAN, min((1 << w) - 16, TOKENIZER_SPAN),
-                                         device=self.device)
+        if self.device_lz:
+            self.tokenizer = DeviceTokenizer(TOKENIZER_SPAN, min((1 << w) - 16, TOKENIZER_SPAN),
+                                             device=self.device)
 
     def compress_chunk(self, data: bytes, final: bool) -> bytes:
         if self.wbits is None:
@@ -661,10 +669,26 @@ class BrotliStreamEncoder:
             self.sink.align()
         return self.sink.drain()
 
+    def _host_tokens(self, arr: np.ndarray):
+        """The host route's token cover of one meta-block. Quality 10/11
+        buy ratio with deep chain walks (the libbrotli q10/q11 role): a
+        moderate hash-3 walk for near matches and a hash-6 tier whose
+        chains hold only long-match candidates; the level-9 cost-model DP
+        then parses them."""
+        if self.quality >= 10:
+            depth = 40 if self.quality >= 11 else 32
+            h6 = 96 if self.quality >= 11 else 64
+            patience = 24
+        else:
+            depth = h6 = patience = 0
+        max_dist = min((1 << self.wbits) - 16, len(arr))
+        return tokenize(arr, max(1, min(9, self.quality)), ZlibStrategy.Default, max_dist,
+                        depth=depth, patience=patience, hash6_depth=h6)
+
     def _write_data_meta_block(self, data: bytes) -> None:
         mlen = len(data)
         arr = np.frombuffer(data, dtype=np.uint8)
-        tokens = self.tokenizer(data)
+        tokens = self.tokenizer(data) if self.device_lz else self._host_tokens(arr)
         use_native = len(tokens[0]) > NATIVE_MIN_TOKENS
         commands = _commands_from_tokens(*tokens)
         start_a, ins_a = commands[:2]

@@ -1,8 +1,8 @@
 """Brotli options: the port's ``BrotliMode`` and ``BrotliOptions``, after
 ``compu_tpu/formats/brotli/options.py``.
 
-The port always runs the LZ stage on the device, so its options have no
-``device_lz`` switch, as its ``ZstdOptions`` has none.
+The port runs the LZ stage on the device unless asked not to
+(``device_lz=False``); the reference's default is its host match finder.
 """
 
 from __future__ import annotations
@@ -24,12 +24,16 @@ class BrotliMode(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class BrotliOptions:
-    """Encoder options: quality 1-11, the input mode and the window's
-    log2 size (10-24)."""
+    """Encoder options: quality 1-11, the input mode, the window's log2
+    size (10-24), and where the LZ stage runs."""
 
     quality: int = 9
     mode: BrotliMode = BrotliMode.Generic
     window_bits: int = 22
+    #: Run the LZ match+parse stage on the device (``formats/device_lz.py``,
+    #: kernels B1 and B2); ``False`` takes the host match finder and parse
+    #: by quality. The reference's default is ``False``.
+    device_lz: bool = True
 
     def __post_init__(self) -> None:
         if not 1 <= self.quality <= 11:

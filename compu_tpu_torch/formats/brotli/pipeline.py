@@ -1,7 +1,7 @@
 """Brotli backends: the port's copies of ``BrotliEncoder``,
 ``BrotliDecoder``, ``NativeBrotliEncoder`` and ``NativeBrotliDecoder``
-from ``compu_tpu/formats/brotli/pipeline.py``: the device-LZ encoder and
-the Python decoder, and the host runtime's standalone encoder and decoder.
+from ``compu_tpu/formats/brotli/pipeline.py``: the encoder on the device
+or host LZ stage and the Python decoder, and the host runtime's standalone encoder and decoder.
 They buffer internally; the stream header rides in the first meta-block's bits
 and the final empty meta-block ends the stream, so there are no header or
 trailer bytes of their own, and a flush adds no marker (the bits past the
@@ -16,8 +16,9 @@ from .options import BrotliOptions
 
 
 class BrotliEncoder(EncoderBackend):
-    """One meta-block, and one device tokenizer call, a pipeline block of
-    1 MiB. ``device`` runs the LZ stage (CUDA by default)."""
+    """One meta-block a pipeline block of 1 MiB; on the device route
+    (``options.device_lz``, the default) one tokenizer call on ``device``
+    (CUDA by default), on the host route the host match finder."""
 
     name = "brotli"
     block_size = TOKENIZER_SPAN
@@ -30,6 +31,7 @@ class BrotliEncoder(EncoderBackend):
             window_bits=self.options.window_bits,
             mode=self.options.mode,
             device=device,
+            device_lz=self.options.device_lz,
         )
 
     def _compress(self, data: bytes, final: bool) -> bytes:

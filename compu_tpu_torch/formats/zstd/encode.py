@@ -1,13 +1,23 @@
-"""Zstandard encoder (RFC 8878) over the device LZ stage.
+"""Zstandard encoder (RFC 8878): the port's copy of
+``compu_tpu/formats/zstd/encode.py``.
 
-The port's copy of the device-LZ route of ``compu_tpu/formats/zstd/
-encode.py``. Per frame block of up to 128 KiB: the token cover from the
-shared device matcher (``formats/device_lz.py``; one tokenizer call per
-staged span of 8 frame blocks, sliced per block), collapsed into zstd
+Per frame block of up to 128 KiB: a token cover, collapsed into zstd
 sequences; Huffman-compressed literals (1- or 4-stream, raw fallback);
 sequences FSE-coded with custom normalized tables (predefined, RLE and
 repeat modes too); RLE/raw block fallbacks; the optional xxhash64 content
-checksum. With ``device_literals`` the 4-stream literal pack, and with
+checksum. The cover comes from one of two LZ stages:
+
+* the device route (``device_lz``, the port's default): the shared device
+  matcher (``formats/device_lz.py``), one tokenizer call per staged span
+  of 8 frame blocks, sliced per block;
+* the host route: the reference's host match finders by parse level.
+  Below level 9 the greedy/lazy cover of ``deflate_encode.tokenize`` (from
+  level 5 with matches reaching into the previous block's window), from
+  level 9 the zstd-native cost-model parse (``_zstd_optimal_tokens``);
+  from level 12 a chunk's sub-blocks share one chain walk; from level 5
+  matches are promoted to repeat offsets (``_promote_rep_offsets``).
+
+With ``device_literals`` the 4-stream literal pack, and with
 ``device_sequences`` the sequences bitstream, run on the device
 (``kernels/zstd_literals.py``, ``kernels/zstd_seq.py``), byte for byte the
 host writers' output.
@@ -15,11 +25,10 @@ host writers' output.
 The host stages call the host runtime's loops (``native_enc.py``) where
 the reference calls its own: the sequences from a cover of more than 512
 tokens, the codes, repeat offsets and (when the sequences do not run on
-the device) the bitstream of a section of more than 64 sequences, and
-Huffman streams of more than 64 bytes. The pure-Python forms below stay
-as their twins. The reference's host match finders (the host route of
-``deflate_encode.tokenize`` and the optimal parse) are not taken here yet:
-a block needs a tokenizer.
+the device) the bitstream of a section of more than 64 sequences, Huffman
+streams of more than 64 bytes, every round of the cost-model parse, and
+the repeat-offset promotion of more than 64 sequences. The pure-Python
+forms below stay as their twins (``_optimal_dp_py`` for the parse).
 """
 
 from __future__ import annotations
@@ -28,8 +37,11 @@ import struct
 
 import numpy as np
 
+from ...ops.huffman import length_limited_lengths
 from ...ops.xxhash import xxh64
 from ..base import CodecFailure
+from ..deflate.deflate_encode import _greedy_tokens, find_matches, find_matches_k, tokenize
+from ..deflate.options import ZlibStrategy
 from . import native_enc
 from .fse import ForwardBitWriter, FseEncodeTable, write_norm_counts
 from .huff import HufEncoder, normalize_counts
@@ -81,6 +93,300 @@ def _sequences_from_tokens_py(data, tok_pos, tok_len, tok_dist):
     if pending_lit:
         lits.extend(data[run_start : run_start + pending_lit])
     return bytes(lits), seqs
+
+
+# --- zstd-native optimal parse (btopt-style squeeze) -----------------------
+# Match lengths 3..258 -> ML code / extra bits (the shared matcher caps at
+# DEFLATE's 258; longer runs are recovered by the same-distance merge above).
+_ML_CODE_LEN = np.zeros(259, dtype=np.int64)
+for _l in range(3, 259):
+    _ML_CODE_LEN[_l] = T.ml_code(_l)
+_ML_XBITS_LEN = T.ML_BITS[_ML_CODE_LEN]
+# Candidate sublengths: every length <= 67 (cost[i+l] varies within a code
+# bucket even when the code cost doesn't), then the code-base boundaries.
+_ML_SUBLENS = sorted(set(list(range(3, 68)) + [int(b) for b in T.ML_BASE if b <= 258]))
+
+
+def _parse_effort(level: int):
+    """Effort ladder for the high strategies: (pareto slots K, chain-walk
+    depth), the btopt/btultra analogue; depth is the dominant ratio
+    lever."""
+    if level >= 22:
+        return 5, 2048
+    if level >= 19:
+        return 5, 512
+    if level >= 15:
+        return 5, 128
+    if level >= 12:
+        return 3, 64
+    return 1, 0
+
+
+def _zstd_optimal_tokens(full: np.ndarray, hist_len: int, level: int,
+                         max_dist: int, data_len: int | None = None,
+                         matches=None, rep_in=None):
+    """Iterated cost-model parse with zstd-native prices: literal cost from
+    an 11-bit-capped Huffman estimate, match cost = ML code FSE cost + extra
+    bits + OF code cost + offset bits + amortized LL channel cost. Two to
+    four Zopfli-style rounds (stats from the previous parse), each one call
+    of the host runtime's relax loop (``native_enc.optimal_parse``; its
+    twin is ``_optimal_dp_py``). ``full`` includes ``hist_len`` window bytes from previous
+    blocks; tokens are returned for the region past the history (distances
+    may reach into it — RFC 8878 windows span block boundaries).
+    ``data_len`` bounds the parsed region (sub-block splitting);
+    ``matches`` injects precomputed pareto candidates over ``full`` so
+    split blocks share ONE chain walk."""
+    K, depth = _parse_effort(level)
+    if matches is None:
+        matches = find_matches_k(
+            full, min(level, 9), max_dist, K=K, depth=depth,
+            deflate_heuristics=False,
+        )
+    lens_fk, dists_fk = matches
+    end = len(full) if data_len is None else hist_len + data_len
+    data = full[hist_len:end]
+    full = full[:end]
+    n = len(data)
+    lens_k = np.asarray(lens_fk[hist_len:end], dtype=np.int64)
+    dists_k = np.asarray(dists_fk[hist_len:end], dtype=np.int64)
+    # Matches must not run past the block end (zstd sequences reproduce
+    # exactly one block) — clamp, and drop below the 3-byte minimum.
+    room = n - np.arange(n)
+    lens_k = np.minimum(lens_k, room[:, None])
+    lens_k[lens_k < 3] = 0
+    # Longest candidate (slot of max length) seeds the greedy parse.
+    top = np.argmax(lens_k, axis=1)
+    rows = np.arange(len(lens_k))
+    lens = lens_k[rows, top]
+    dists = dists_k[rows, top]
+    tok = _greedy_tokens(data, lens, dists)
+    if n <= 16:
+        return tok
+    # Extremely repetitive blocks (mean token span > 64 bytes): the greedy
+    # cover is already nearly all max-length matches and the per-position
+    # sublength DP would grind O(n * |sublens| * rounds) for <0.1% gain.
+    if len(tok[0]) * 64 < n:
+        return tok
+    # Offset codes per candidate (value = offset+3; repeat slots are priced
+    # by the channel stats, not per-position). bit_length via searchsorted
+    # over powers of two.
+    occ_k = np.searchsorted(_POW2, np.maximum(dists_k, 1) + 3, side="right") - 1
+
+    def chan_cost(codes, nsym):
+        f = np.bincount(codes, minlength=nsym).astype(np.float64)
+        tot = max(f.sum(), 1.0)
+        return np.minimum(np.where(f > 0, -np.log2(np.maximum(f, 1) / tot), 15.0), 15.0)
+
+    rounds = 4 if level >= 22 else (3 if level >= 15 else 2)
+    for _ in range(rounds):
+        lits, seqs = _sequences_from_tokens(data, *tok)
+        if len(seqs) == 0:
+            break
+        seqs = _promote_rep_offsets(full, hist_len, seqs, rep_in)
+        lf = np.bincount(np.frombuffer(lits, np.uint8), minlength=256)
+        if len(lits) >= 32:
+            ll_ = length_limited_lengths(lf, 11).astype(np.float64)
+            ll_[ll_ == 0] = 12.0
+        else:
+            ll_ = np.full(256, 8.0)
+        sa = np.asarray(seqs, dtype=np.int64)
+        of_vals = native_enc.resolve_offsets(sa[:, 0], sa[:, 1], rep_in)[0]
+        of_codes = np.searchsorted(_POW2, of_vals, side="right") - 1
+        ml_a, ll_a = sa[:, 2], sa[:, 0]
+        ml_codes = np.where(
+            ml_a < 35, ml_a - 3, np.searchsorted(T.ML_BASE, ml_a, side="right") - 1)
+        ll_codes = np.where(
+            ll_a < 16, ll_a, np.searchsorted(T.LL_BASE, ll_a, side="right") - 1)
+        ofc = chan_cost(of_codes, 32)
+        mlc = chan_cost(ml_codes, 53)
+        llc = chan_cost(ll_codes, 36)
+        # LL channel split: each sequence pays the ll=0 code (the common
+        # back-to-back-match case); the surplus (nonzero-run codes + extra
+        # bits) is amortized over the literals that create those runs.
+        llc0 = float(llc[0])
+        ll_tot = float(np.sum(llc[ll_codes] + T.LL_BITS[ll_codes]))
+        lit_extra = max(0.0, (ll_tot - len(seqs) * llc0) / max(len(lits), 1))
+        mlcost_arr = mlc[_ML_CODE_LEN[3:]] + _ML_XBITS_LEN[3:]  # [l-3]
+        dc_arr = ofc[np.clip(occ_k, 0, 31)] + occ_k + llc0  # (n, K)
+        # Repeat-offset match price: OF value 1 -> code 0, zero extra bits.
+        rep_dc = float(ofc[0]) + llc0
+        tok = native_enc.optimal_parse(
+            full.tobytes(), hist_len, n, lens_k, dists_k, ll_ + lit_extra, mlcost_arr,
+            dc_arr, rep_dc, _ML_SUBLENS, rep_in[0] if rep_in else 1)
+    return tok
+
+
+def _optimal_dp_py(full: bytes, hist_len: int, n: int, lens_k, dists_k, litcost,
+                   mlcost_len, dc_k, rep_dc: float, sublens, rep0_init: int):
+    """The Python twin of ``native_enc.optimal_parse``: one round's forward
+    DP over ``full[hist_len:hist_len + n]`` and its backtrack, as (pos,
+    len, dist) int64 arrays.
+
+    Forward DP with arrival rep0 state (btultra-style): a position's best
+    path carries the rep0 its predecessor match established, and a
+    same-distance (rep0) match is offered as an extra candidate priced at
+    the ~1-bit repeat code — this is what makes short matches profitable."""
+    K = np.asarray(lens_k).shape[1]
+    litcost = np.asarray(litcost).tolist()
+    mlcost_len = np.asarray(mlcost_len).tolist()
+    dc_k = np.asarray(dc_k).tolist()
+    full_l = list(full)
+    lens_kl = np.asarray(lens_k).tolist()
+    dists_kl = np.asarray(dists_k).tolist()
+    data_l = full_l[hist_len:hist_len + n]
+    INF = 1e18
+    cost = [INF] * (n + 1)
+    cost[0] = 0.0
+    rep0 = [rep0_init] * (n + 1)
+    plen = [0] * (n + 1)
+    pdist = [0] * (n + 1)
+
+    def relax(j, c, r, l, d):
+        if c < cost[j]:
+            cost[j] = c
+            rep0[j] = r
+            plen[j] = l
+            pdist[j] = d
+
+    rep_memo_r = -1
+    rep_memo_l = 0
+    rep_memo_i = -10
+    for i in range(n):
+        ci = cost[i]
+        r0 = rep0[i]
+        # literal step
+        relax(i + 1, ci + litcost[data_l[i]], r0, 0, 0)
+        # rep0 match measured on the fly (may reach into the history).
+        # Carry memo keeps this O(n) on run-heavy data: with the same rep
+        # distance, matchlen(i+1) == matchlen(i) - 1 exactly — unless the
+        # previous scan hit the cap, where it re-extends from cap-1.
+        src = hist_len + i - r0
+        if src >= 0:
+            dst = hist_len + i
+            lmax = min(258, n - i)
+            if r0 == rep_memo_r and rep_memo_i == i - 1 and rep_memo_l > 0:
+                l = rep_memo_l - 1
+                if rep_memo_l >= 258:
+                    while l < lmax and full_l[src + l] == full_l[dst + l]:
+                        l += 1
+                l = min(l, lmax)
+            else:
+                l = 0
+                while l < lmax and full_l[src + l] == full_l[dst + l]:
+                    l += 1
+            rep_memo_r, rep_memo_l, rep_memo_i = r0, l, i
+            if l >= 3:
+                relax(i + l, ci + mlcost_len[l - 3] + rep_dc, r0, l, r0)
+                for lb in sublens:
+                    if lb >= l:
+                        break
+                    relax(i + lb, ci + mlcost_len[lb - 3] + rep_dc, r0, lb, r0)
+        # finder candidates (pareto slots, nearest-first)
+        row_l = lens_kl[i]
+        row_d = dists_kl[i]
+        row_c = dc_k[i]
+        prev_l = 2  # shorter sublengths are covered by closer slots
+        for k in range(K):
+            L = row_l[k]
+            if L < 3 or L <= prev_l:
+                continue
+            D = row_d[k]
+            dc = row_c[k]
+            relax(i + L, ci + mlcost_len[L - 3] + dc, D, L, D)
+            for lb in sublens:
+                if lb >= L:
+                    break
+                if lb <= prev_l:
+                    continue
+                relax(i + lb, ci + mlcost_len[lb - 3] + dc, D, lb, D)
+            prev_l = L
+    # Backtrack the chosen cover.
+    pos_r, tl_r, td_r = [], [], []
+    j = n
+    while j > 0:
+        l = plen[j]
+        if l:
+            pos_r.append(j - l)
+            tl_r.append(l)
+            td_r.append(pdist[j])
+            j -= l
+        else:
+            pos_r.append(j - 1)
+            tl_r.append(0)
+            td_r.append(0)
+            j -= 1
+    return (np.asarray(pos_r[::-1], dtype=np.int64),
+            np.asarray(tl_r[::-1], dtype=np.int64),
+            np.asarray(td_r[::-1], dtype=np.int64))
+
+
+def _promote_rep_offsets(full: np.ndarray, hist_len: int, seqs, rep=None):
+    """Swap a match's offset for a repeat-history distance when the same
+    bytes exist there (elementwise compare on the true data is exact even
+    for overlapping copies): an OF code drops from ~oc+4 bits to ~1-3.
+    Tracks the 3-slot history exactly as the decoder does, including the
+    ll==0 slot rotation (decode.py::_execute_sequences); ``rep`` is the
+    incoming frame-persistent ring. Above 64 sequences the host runtime's
+    loop (``native_enc.promote_rep``), whose result is an (n, 3) array."""
+    if len(seqs) > 64:
+        return native_enc.promote_rep(full.tobytes(), hist_len, seqs, rep)
+    rep = list(rep) if rep is not None else [1, 4, 8]
+    pos = hist_len
+    out = []
+    nfull = len(full)
+    for ll, off, ml in seqs:
+        pos += ll
+        new_off = off
+        cands = (rep[0], rep[1], rep[2]) if ll != 0 else (rep[1], rep[2], rep[0] - 1)
+        for rd in cands:
+            if rd == off:
+                break  # already coded as a (cheaper or equal) repeat
+            if rd <= 0 or pos - rd < 0 or pos + ml > nfull:
+                continue
+            if np.array_equal(full[pos - rd : pos - rd + ml], full[pos : pos + ml]):
+                new_off = rd
+                break
+        out.append((ll, new_off, ml))
+        # History update, identical to _resolve_offset_values/decoder.
+        if ll != 0:
+            if new_off == rep[0]:
+                val = 1
+            elif new_off == rep[1]:
+                val = 2
+            elif new_off == rep[2]:
+                val = 3
+            else:
+                val = new_off + 3
+        else:
+            if new_off == rep[1]:
+                val = 1
+            elif new_off == rep[2]:
+                val = 2
+            elif new_off == rep[0] - 1 and new_off > 0:
+                val = 3
+            else:
+                val = new_off + 3
+        if val > 3:
+            rep = [new_off, rep[0], rep[1]]
+        else:
+            idx = val - 1 + (1 if ll == 0 else 0)
+            if idx == 1:
+                rep = [new_off, rep[0], rep[2]]
+            elif idx >= 2:
+                rep = [new_off, rep[0], rep[1]]
+        pos += ml
+    return out
+
+
+def _tokens_with_history(full: np.ndarray, hist_len: int, level: int,
+                         max_dist: int):
+    """Token cover of ``full[hist_len:]`` with matches allowed to reach into
+    the history prefix (cross-block window, RFC 8878 §3.1.1.2.2)."""
+    if level >= 9:
+        return _zstd_optimal_tokens(full, hist_len, level, max_dist)
+    lens_f, dists_f = find_matches(full, level, ZlibStrategy.Default, max_dist)
+    data = full[hist_len:]
+    return _greedy_tokens(data, lens_f[hist_len:], dists_f[hist_len:])
 
 
 def _literals_section(lits: bytes, reuse: dict | None = None,
@@ -433,18 +739,21 @@ def _sequences_bitstream_device(seqs, ll_codes, ml_codes, of_codes,
         ll_xbits, ml_xbits, of_xb, ll_t.enc, ml_t.enc, of_t.enc, device)
 
 
-def compress_block(data: bytes, tokenizer=None, reuse: dict | None = None,
-                   device_literals: bool = False, device_sequences: bool = False,
-                   device=None, block_max: int = MAX_BLOCK) -> bytes:
+def compress_block(data: bytes, level: int = 3, max_dist: int = MAX_BLOCK,
+                   tokenizer=None, history: bytes = b"", reuse: dict | None = None,
+                   matches=None, device_literals: bool = False,
+                   device_sequences: bool = False, device=None,
+                   block_max: int = MAX_BLOCK) -> bytes:
     """One zstd block body (compressed type), or raw/RLE when better.
     Returns the full block including its 3-byte header. ``tokenizer(data)``
-    gives the block's token cover; the port has no host match finder, so
-    it is required. The literals and the sequences bitstream are packed on
-    ``device`` where ``device_literals``/``device_sequences`` ask for it.
-    ``block_max`` is the frame's Block_Maximum_Size, min(window, 128 KiB)."""
-    if tokenizer is None:
-        raise ValueError("compress_block needs a tokenizer: the port has no "
-                         "host match finder (use the device LZ stage)")
+    gives the block's token cover where one is given (the device route);
+    else the host route parses at ``level``, its matches reaching
+    ``max_dist`` back, into ``history`` too (the window tail of previous
+    blocks: the decoder's window spans block boundaries), or over the
+    shared chain walk ``matches``. The literals and the sequences
+    bitstream are packed on ``device`` where
+    ``device_literals``/``device_sequences`` ask for it. ``block_max`` is
+    the frame's Block_Maximum_Size, min(window, 128 KiB)."""
     n = len(data)
     if not 0 < n <= block_max:
         raise ValueError(f"a block holds 1..{block_max} bytes, got {n}")
@@ -457,9 +766,25 @@ def compress_block(data: bytes, tokenizer=None, reuse: dict | None = None,
         return header(1, n) + data[:1]
 
     arr = np.frombuffer(data, dtype=np.uint8)
-    tok_pos, tok_len, tok_dist = tokenizer(data)
+    if tokenizer is not None:
+        tok_pos, tok_len, tok_dist = tokenizer(data)
+    elif history and level < 9:
+        full = np.frombuffer(history + data, dtype=np.uint8)
+        tok_pos, tok_len, tok_dist = _tokens_with_history(full, len(history), level, max_dist)
+    elif history or level >= 9 or matches is not None:
+        full = np.frombuffer(history + data, dtype=np.uint8) if history else arr
+        tok_pos, tok_len, tok_dist = _zstd_optimal_tokens(
+            full, len(history), level, max_dist, matches=matches,
+            rep_in=reuse.get("rep") if reuse else None,
+        )
+    else:
+        tok_pos, tok_len, tok_dist = tokenize(arr, min(level, 9), ZlibStrategy.Default, max_dist)
     lits, seqs = _sequences_from_tokens(arr, tok_pos, tok_len, tok_dist)
     local = dict(reuse) if reuse is not None else None
+    if len(seqs) and level >= 5 and tokenizer is None:
+        fullarr = np.frombuffer(history + data, dtype=np.uint8) if history else arr
+        seqs = _promote_rep_offsets(fullarr, len(history), seqs,
+                                    local.get("rep") if local else None)
     try:
         body = (_literals_section(lits, local,
                                   device=device if device_literals else None)
@@ -514,41 +839,68 @@ def _slice_token_cover(tok_pos, tok_len, tok_dist, off: int, end: int):
 
 
 class ZstdStreamEncoder:
-    """Frame-level streaming encoder (hooks for the pipeline backend), on
-    the device LZ stage: one tokenizer call per ``tokenizer_span`` bytes
-    staged, one frame block per ``block_max`` slice of its cover, where
-    ``block_max = min(2^window_log, MAX_BLOCK)`` is RFC 8878's
-    Block_Maximum_Size (the reference cuts at MAX_BLOCK whatever the
-    window, which stock zstd rejects below window_log 17). Matches stay
-    within ``min(2^window_log - 1, MAX_BLOCK)``, so distances across frame
-    blocks are legal zstd (the decoder's window spans blocks).
+    """Frame-level streaming encoder (hooks for the pipeline backend).
+    Every frame block holds at most ``block_max = min(2^window_log,
+    MAX_BLOCK)`` bytes, RFC 8878's Block_Maximum_Size (the reference cuts
+    at MAX_BLOCK whatever the window, which stock zstd rejects below
+    window_log 17); at window_log >= 17 the frames are the reference's.
 
-    The reference's ``level`` and ``strategy`` pick its host parse, which a
-    device-LZ frame does not use, so they are not taken here. ``device``
-    runs the tokenizer and the device entropy stages (CUDA by default)."""
+    With ``device_lz`` (the route ``ZstdOptions`` defaults to): one device
+    tokenizer call per ``tokenizer_span`` bytes staged, one frame block per
+    ``block_max`` slice of its cover; matches stay within
+    ``min(2^window_log - 1, MAX_BLOCK)``, so distances across frame blocks
+    are legal zstd (the decoder's window spans blocks), and ``level`` and
+    ``strategy`` are not read. Without it, the host route parses each
+    block at ``parse_level`` (the level, or the strategy's rung). ``device``
+    (CUDA by default) runs the tokenizer and the device entropy stages; a
+    host-route encoder without ``device_literals`` or ``device_sequences``
+    touches no device."""
 
-    def __init__(self, checksum: bool = True, window_log: int = 17,
-                 device_literals: bool = False, device_sequences: bool = False,
-                 device=None) -> None:
-        import torch
+    #: Strategy -> effective parse level (libzstd ZSTD_c_strategy override
+    #: semantics, reference src/encoder/zstd.rs:121): the strategy picks the
+    #: match-finder/parse ladder rung regardless of level.
+    _STRATEGY_PARSE_LEVEL = {
+        "Fast": 1, "DFast": 3, "Greedy": 4, "Lazy": 6, "Lazy2": 8,
+        "BtLazy2": 10, "BtOpt": 15, "BtUltra": 19, "BtUltra2": 22,
+    }
 
-        from ..device_lz import DeviceTokenizer
-
+    def __init__(self, level: int = 3, checksum: bool = True, window_log: int = 17,
+                 device_lz: bool = True, strategy=None, device_literals: bool = False,
+                 device_sequences: bool = False, device=None) -> None:
+        # Effective parse level: strategy overrides; level 0 is the default
+        # ladder rung (3); negative levels all take the fastest greedy rung.
+        if strategy is not None and strategy.name != "Default":
+            self.parse_level = self._STRATEGY_PARSE_LEVEL[strategy.name]
+        elif level == 0:
+            self.parse_level = 3
+        elif level < 0:
+            self.parse_level = 1
+        else:
+            self.parse_level = level
         self.checksum = checksum
         self.window_log = window_log
         self.block_max = min(MAX_BLOCK, 1 << window_log)
         self.device_literals = device_literals
         self.device_sequences = device_sequences
-        self.device = torch.device("cuda" if device is None else device)
-        # 8 frame blocks per tokenizer call: one transfer round trip per MiB.
-        self.tokenizer_span = 8 * MAX_BLOCK
-        self.tokenizer = DeviceTokenizer(
-            self.tokenizer_span, min((1 << window_log) - 1, MAX_BLOCK),
-            device=self.device)
+        self.device = None
+        self.tokenizer = None
+        if device_lz or device_literals or device_sequences:
+            import torch
+
+            self.device = torch.device("cuda" if device is None else device)
+        if device_lz:
+            from ..device_lz import DeviceTokenizer
+
+            # 8 frame blocks per tokenizer call: one transfer round trip per MiB.
+            self.tokenizer_span = 8 * MAX_BLOCK
+            self.tokenizer = DeviceTokenizer(
+                self.tokenizer_span, min((1 << window_log) - 1, MAX_BLOCK),
+                device=self.device)
         self.reset()
 
     def reset(self) -> None:
         self._hash_buf = bytearray()
+        self._window = b""
         self._reuse: dict = {}
 
     def header(self) -> bytes:
@@ -560,36 +912,77 @@ class ZstdStreamEncoder:
         wd = exponent << 3
         return struct.pack("<IBB", ZSTD_MAGIC, fhd, wd)
 
-    def _block(self, data: bytes, tokenizer, final: bool) -> bytes:
-        blob = compress_block(data, tokenizer=tokenizer, reuse=self._reuse,
+    def _block(self, data: bytes, final: bool, **route) -> bytes:
+        blob = compress_block(data, self.parse_level, reuse=self._reuse,
                               device_literals=self.device_literals,
                               device_sequences=self.device_sequences,
-                              device=self.device, block_max=self.block_max)
+                              device=self.device, block_max=self.block_max, **route)
         if final:
             blob = bytes([blob[0] | 1]) + blob[1:]
         return blob
 
     def compress_chunk(self, data: bytes, final: bool) -> bytes:
-        """Compress up to ``tokenizer_span`` input bytes as one or more
-        frame blocks."""
+        """Compress a staged chunk (up to ``tokenizer_span`` bytes on the
+        device route, ``block_max`` on the host route) as one or more frame
+        blocks.
+
+        On the host route, levels from 12 split a chunk of more than 48 KiB
+        into 32 KiB (level 15 on) or 64 KiB sub-blocks over one chain walk:
+        per-block entropy tables adapt locally (the window still spans
+        blocks, and repeat-mode tables / treeless literals reuse state when
+        a block's statistics don't change)."""
         if self.checksum:
             self._hash_buf.extend(data)
         if not data:
             # Empty final block (raw, size 0).
             return struct.pack("<I", 1 | (0 << 1) | 0)[:3]
         blk = self.block_max
-        if len(data) <= blk:
-            return self._block(data, self.tokenizer, final)
-        # One device tokenizer call over the whole staged chunk, then one
-        # frame block per ``block_max`` slice of the token cover.
-        out = bytearray()
-        tok_pos, tok_len, tok_dist = self.tokenizer(data)
-        for off in range(0, len(data), blk):
-            end = min(off + blk, len(data))
-            sub = _slice_token_cover(tok_pos, tok_len, tok_dist, off, end)
-            out.extend(self._block(data[off:end], lambda d, s=sub: s,
-                                   final and end >= len(data)))
-        return bytes(out)
+        if self.tokenizer is not None:
+            if len(data) <= blk:
+                return self._block(data, final, tokenizer=self.tokenizer)
+            # One device tokenizer call over the whole staged chunk, then one
+            # frame block per ``block_max`` slice of the token cover.
+            out = bytearray()
+            tok_pos, tok_len, tok_dist = self.tokenizer(data)
+            for off in range(0, len(data), blk):
+                end = min(off + blk, len(data))
+                sub = _slice_token_cover(tok_pos, tok_len, tok_dist, off, end)
+                out.extend(self._block(data[off:end], final and end >= len(data),
+                                       tokenizer=lambda d, s=sub: s))
+            return bytes(out)
+        wmax = (1 << self.window_log) - 1
+        if self.parse_level >= 12 and len(data) > 49152:
+            bs = min(32768 if self.parse_level >= 15 else 65536, blk)
+            # ONE chain walk over (window + whole chunk); every sub-block
+            # parses against slices of it (the DP clamps lengths to its own
+            # block end), instead of re-hashing the history per block.
+            window0 = self._window
+            gfull = np.frombuffer(window0 + data, dtype=np.uint8)
+            K, depth = _parse_effort(self.parse_level)
+            gmatches = find_matches_k(gfull, 9, min(wmax, len(gfull)), K=K, depth=depth,
+                                      deflate_heuristics=False)
+            out = bytearray()
+            for off in range(0, len(data), bs):
+                sub = data[off: off + bs]
+                hist = window0 + data[:off]
+                out.extend(self._block(sub, final and off + bs >= len(data),
+                                       max_dist=min(wmax, len(hist) + len(sub)),
+                                       history=hist, matches=gmatches))
+                self._window = (self._window + sub)[-min(wmax, MAX_BLOCK):]
+            return bytes(out)
+        return self._compress_one(data, final)
+
+    def _compress_one(self, data: bytes, final: bool) -> bytes:
+        """One host-route frame block. Levels from 5 match into the window
+        (capped at one MAX_BLOCK of history to bound the re-hash cost);
+        levels up to 4 stay block-local for speed, like zstd's fast
+        strategies."""
+        wmax = (1 << self.window_log) - 1
+        history = self._window if self.parse_level >= 5 else b""
+        blob = self._block(data, final, max_dist=min(wmax, len(history) + len(data)),
+                           history=history)
+        self._window = (self._window + data)[-min(wmax, MAX_BLOCK):]
+        return blob
 
     def trailer(self) -> bytes:
         if self.checksum:

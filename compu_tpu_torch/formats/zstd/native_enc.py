@@ -11,8 +11,10 @@ it against; the encoder calls these wherever the reference's does:
 * ``huf_stream``: one Huffman literal stream (``HufEncoder.encode_stream``);
 * ``fse_pair_stream``: the two-state FSE weight stream
   (``HufEncoder._describe_fse``);
-* ``optimal_parse`` and ``promote_rep``: the host route's cost-model parse
-  and repeat-offset promotion, whose callers are not ported yet.
+* ``optimal_parse``: one round of the host route's cost-model parse
+  (``_zstd_optimal_tokens``; its twin is ``_optimal_dp_py``);
+* ``promote_rep``: the host route's repeat-offset promotion
+  (``_promote_rep_offsets``).
 """
 
 from __future__ import annotations

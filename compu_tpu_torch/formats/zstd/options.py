@@ -1,26 +1,51 @@
-"""zstd options: the port's ``ZstdOptions`` and ``ZstdDecodeOptions``,
-after ``compu_tpu/formats/zstd/options.py``.
+"""zstd options: the port's ``ZstdStrategy``, ``ZstdOptions`` and
+``ZstdDecodeOptions``, after ``compu_tpu/formats/zstd/options.py``.
 
-The port's ``Interface.zstd`` always runs the LZ stage on the device, so
-it takes none of the reference's settings that pick a host parse
-(``strategy``) and no ``device_lz`` switch; ``level`` is read by the host
-runtime's encoder (``Interface.zstd_native``) alone. The decoder decodes
-the 4-stream literal sections on the device unless asked not to (the
-reference's default is the host).
+Two defaults differ from the reference's, so that the port's entry points
+run on the device unless the caller asks for the host: ``Interface.zstd``
+runs the LZ stage on the device (``device_lz=True``; the reference's
+default is its host match finder and parse), and the decoder decodes the
+4-stream literal sections there (``device_literals=True``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class ZstdStrategy(enum.Enum):
+    """Compression strategy ladder (reference: src/encoder/zstd.rs:35-56).
+
+    A non-default strategy *overrides* the parse effort the level implies
+    (libzstd's ``ZSTD_c_strategy`` semantics, applied by the reference at
+    src/encoder/zstd.rs:121): Fast/DFast/Greedy select the greedy chain
+    walk at increasing depth, Lazy/Lazy2 the lazy heuristic, BtLazy2 a deep
+    lazy walk, and BtOpt/BtUltra/BtUltra2 the cost-model optimal parse at
+    increasing depth/candidate budgets. The level keeps governing entropy
+    and window behavior. The device LZ stage reads neither."""
+
+    Default = 0
+    Fast = 1
+    DFast = 2
+    Greedy = 3
+    Lazy = 4
+    Lazy2 = 5
+    BtLazy2 = 6
+    BtOpt = 7
+    BtUltra = 8
+    BtUltra2 = 9
 
 
 @dataclasses.dataclass(frozen=True)
 class ZstdOptions:
     """Encoder options (reference: ZstdOptions, src/encoder/zstd.rs:62-133).
 
-    ``level`` follows zstd's ladder (1..22, 0 the default 3, negative
-    levels down to -131072 the fast path) and sets the effort of
-    ``Interface.zstd_native``; the device-LZ encode does not read it.
+    ``level`` follows zstd's ladder: 1..22 standard levels, 0 means the
+    default (3), and negative levels down to -131072 select the fast path
+    (all negative levels share the fastest rung). It sets the host route's
+    parse (``device_lz=False``), which ``strategy`` overrides, and the
+    effort of ``Interface.zstd_native``; the device LZ stage reads neither.
     ``window_log`` bounds match distances (10..31);
     ``checksum`` controls the xxhash64 content checksum (the reference
     relies on libzstd's default off; ours defaults on — flip for byte
@@ -28,8 +53,13 @@ class ZstdOptions:
     """
 
     level: int = 3
+    strategy: ZstdStrategy = ZstdStrategy.Default
     window_log: int = 17
     checksum: bool = True
+    #: Run the LZ match+parse stage on the device (``formats/device_lz.py``,
+    #: kernels B1 and B2); ``False`` takes the host match finder and parse.
+    #: The reference's default is ``False``.
+    device_lz: bool = True
     #: Encode the 4-stream Huffman literals section on the device
     #: (byte-identical output; kernels/zstd_literals.py).
     device_literals: bool = False

@@ -1,8 +1,8 @@
 """zstd backends: the port's copies of ``ZstdEncoder``, ``ZstdDecoder``,
 ``NativeZstdEncoder`` and ``NativeZstdDecoder`` from
 ``compu_tpu/formats/zstd/pipeline.py``, mapping the streaming Encoder and
-Decoder contracts onto the frame codec: the device-LZ encoder and the
-Python decoder, and the host runtime's standalone encoder and decoder."""
+Decoder contracts onto the frame codec: the encoder on the device or host
+LZ stage and the Python decoder, and the host runtime's standalone encoder and decoder."""
 
 from __future__ import annotations
 
@@ -13,9 +13,12 @@ from .options import ZstdDecodeOptions, ZstdOptions
 
 
 class ZstdEncoder(EncoderBackend):
-    """Stages ``tokenizer_span`` bytes (8 frame blocks) per device
-    tokenizer call, as the reference's device-LZ encoder does; each call's
-    cover is sliced into frame blocks of at most 128 KiB. ``device`` runs
+    """On the device route (``options.device_lz``, the default), stages
+    ``tokenizer_span`` bytes (8 frame blocks) per device tokenizer call, as
+    the reference's device-LZ encoder does; each call's cover is sliced
+    into frame blocks of at most ``block_max`` bytes. On the host route,
+    one pipeline block of ``block_max = min(2^window_log, 128 KiB)`` bytes
+    at a time (the reference's is 128 KiB at any window). ``device`` runs
     the device stages (CUDA by default)."""
 
     name = "zstd"
@@ -24,13 +27,17 @@ class ZstdEncoder(EncoderBackend):
         self.options = options or ZstdOptions()
         super().__init__()
         self._stream = ZstdStreamEncoder(
+            level=self.options.level,
             checksum=self.options.checksum,
             window_log=self.options.window_log,
+            device_lz=self.options.device_lz,
+            strategy=self.options.strategy,
             device_literals=self.options.device_literals,
             device_sequences=self.options.device_sequences,
             device=device,
         )
-        self.block_size = self._stream.tokenizer_span
+        self.block_size = (self._stream.tokenizer_span if self.options.device_lz
+                           else self._stream.block_max)
 
     def _header(self) -> bytes:
         return self._stream.header()

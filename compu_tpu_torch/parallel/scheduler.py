@@ -13,6 +13,12 @@ host assembles ONE standard zlib/gzip stream:
   combine algebra (``ops/checksum.py``);
 * the encoder records a block index (compressed offset, raw length).
 
+The block step is the device encode (``kernels/block_codec.py``) or the
+host engine ``make_host_block_encode_fn``: one host-runtime deflate call a
+block in a thread pool, behind the same step contract and stream format.
+``parallel_zstd_compress`` is the zstd counterpart, one host-runtime frame
+a slice, the frames concatenated.
+
 ``BlockParallelDecoder`` reads such a stream back with its index: on the
 device by default, each batch of 16 blocks one scan of kernel P3 and the
 expansion and resolution of ``kernels/inflate.py``, or on the host when
@@ -40,7 +46,7 @@ from ..ops.bitio import BitReader
 from ..utils.metrics import Metrics, trace_span
 
 __all__ = ["BlockIndex", "BlockParallelDecoder", "BlockParallelEncoder", "BlockState",
-           "BlockStatus"]
+           "BlockStatus", "make_host_block_encode_fn", "parallel_zstd_compress"]
 
 
 class BlockState:
@@ -294,6 +300,62 @@ class BlockParallelDecoder:
                 else:
                     pieces.append(flat[j * bs: j * bs + index.raw_lengths[b]].tobytes())
         return b"".join(pieces)
+
+
+def _pool_map(fn, items, workers: int | None) -> list:
+    """``fn`` over ``items`` in order, on a thread pool of ``workers``
+    (default ``min(cpu_count, 8)``) when there is more than one item."""
+    nworkers = workers or min(os.cpu_count() or 1, 8)
+    if len(items) > 1 and nworkers > 1:
+        with ThreadPoolExecutor(max_workers=min(nworkers, len(items))) as pool:
+            return list(pool.map(fn, items))
+    return [fn(x) for x in items]
+
+
+def make_host_block_encode_fn(mode: ZlibMode, level: int = 6, workers: int | None = None):
+    """The scheduler's host engine: a step with ``BlockParallelEncoder``'s
+    contract that encodes each block with one host-runtime deflate call
+    (``_NativeDeflateStream``; a fresh stream a block keeps the blocks
+    independent) and its sync flush, and checks it with the host runtime's
+    adler32 (zlib) or crc32 (otherwise). The calls release the GIL, so the
+    blocks of a batch run on a thread pool of ``workers``. It touches no
+    device."""
+    from ..formats.deflate.pipeline import _NativeDeflateStream
+
+    def encode_one(data: bytes):
+        s = _NativeDeflateStream(level)
+        blob = s.compress(data, final=False) + s.sync_flush()
+        chk = checksum.adler32(data, 1) if mode is ZlibMode.Zlib else checksum.crc32(data, 0)
+        return blob, chk
+
+    def fn(blocks, lens):
+        datas = [blocks[i, : int(lens[i])].tobytes() for i in range(blocks.shape[0])]
+        results = _pool_map(encode_one, datas, workers)
+        out = [np.frombuffer(blob, dtype=np.uint8) for blob, _ in results]
+        out_lens = np.asarray([len(blob) for blob, _ in results], np.int64)
+        checks = np.asarray([chk for _, chk in results], np.uint32)
+        return out, out_lens, checks
+
+    return fn
+
+
+def parallel_zstd_compress(data: bytes, level: int = 3, frame_size: int = 1 << 20,
+                           workers: int | None = None, window_log: int = 21,
+                           checksum_frames: bool = True) -> bytes:
+    """Frame-parallel zstd encode: each ``frame_size`` slice becomes one
+    complete frame of the host runtime's standalone encoder
+    (``NativeZstdStream``, which releases the GIL), on a thread pool of
+    ``workers``; the concatenation is a standard multi-frame zstd stream.
+    It touches no device."""
+    from ..formats.zstd.native_enc2 import NativeZstdStream
+
+    chunks = [data[i:i + frame_size] for i in range(0, max(len(data), 1), frame_size)]
+
+    def one(chunk: bytes) -> bytes:
+        s = NativeZstdStream(level=level, window_log=window_log, checksum=checksum_frames)
+        return s.compress_chunk(chunk, final=True)
+
+    return b"".join(_pool_map(one, chunks, workers))
 
 
 def _upload(arrays, device) -> list[torch.Tensor]:

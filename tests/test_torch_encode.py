@@ -179,12 +179,12 @@ def test_device_fault_raises_without_host_reencode(step, error):
 
 
 def test_unported_kernels_raise():
-    """v1 is not ported by design; v2 is (tests/test_torch_fixed_v2.py)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_block_encode_fn(ZlibMode.Gzip, kernel="v1")
+    """An unknown kernel is refused; v2 (tests/test_torch_fixed_v2.py) and
+    v1 (tests/test_torch_v1.py) are ported."""
     with pytest.raises(ValueError, match="unknown kernel"):
         make_block_encode_fn(ZlibMode.Gzip, kernel="v4")
     assert callable(make_block_encode_fn(ZlibMode.Gzip, kernel="v2", device="cpu"))
+    assert callable(make_block_encode_fn(ZlibMode.Gzip, kernel="v1", device="cpu"))
 
 
 def _device_encode(data, mode, chunk=None):

@@ -23,7 +23,6 @@ import types
 
 import numpy as np
 import pytest
-import zstandard
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -143,6 +142,8 @@ def damaged(blob: bytes, seed: int, trials: int = 8):
 @pytest.mark.parametrize("level", [-5, 1, 3, 9, 19])
 @pytest.mark.parametrize("checksum", [False, True])
 def test_zstd_native_encode_equals_reference(level, checksum):
+    import zstandard
+
     from compu_tpu import encoder as ref_encoder
     from compu_tpu.formats.zstd.options import ZstdOptions as RefOptions
 
@@ -185,6 +186,8 @@ def test_zstd_native_chunks_and_window_carry():
 
 @pytest.fixture(scope="module")
 def zstd_streams():
+    import zstandard
+
     data = corpus(120_000, 3)
     return data, {
         "alice29.txt.zst": (DATA / "alice29.txt.zst").read_bytes(),
@@ -332,6 +335,8 @@ def test_zstd_device_route_helpers_equal_twins(monkeypatch):
     of a helper equals its twin on the same arguments; the frame equals
     the route's frame with every device stage, and the reference's with
     its native helpers on and off; zstandard decodes it."""
+    import zstandard
+
     data = corpus(300_000, 5)
     calls = _spy(monkeypatch, znative, ["seq_from_tokens", "resolve_offsets", "seq_bitstream",
                                         "huf_stream", "fse_pair_stream"])

@@ -359,3 +359,23 @@ def test_port_runtime_sources_equal_the_root_csrc():
     assert 0 < edited <= 16
     text = "".join(p.read_text() for p in (ROOT / "compu_tpu_torch").rglob("*.py"))
     assert "parent.parent.parent / \"csrc\"" not in text and "libcompu_runtime.so" not in text
+
+
+def test_gpu_leg_collects_without_zstandard():
+    """The card machine has no ``zstandard``: the GPU leg (``-m gpu`` over
+    every ``tests/test_torch_*.py``) must still collect every file there,
+    so no port test file imports a CPU-only oracle at module level.
+    Collected here in a fresh interpreter where ``import zstandard``
+    fails."""
+    code = (
+        "import glob, sys\n"
+        "sys.modules['zstandard'] = None\n"
+        "import pytest\n"
+        "files = sorted(glob.glob('tests/test_torch_*.py'))\n"
+        "sys.exit(pytest.main(['--collect-only', '-q', '-m', 'gpu', '-p', 'no:cacheprovider',"
+        " *files]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "error" not in proc.stdout.lower().splitlines()[-1]

@@ -298,15 +298,17 @@ def test_chunked_encode_equals_one_shot():
     assert vec.data() == _port_frame(TEXT)
 
 
-def test_default_options_take_the_device_lz_route():
+def test_default_options_take_the_device_lz_route(jax_cpu):
     """``Interface.zstd()``'s defaults run the device LZ stage with the host
     entropy writers: the frame of the device stages. A block without a
-    token cover has no host match finder to fall back on."""
+    token cover takes the host match finder (tests/test_torch_zstd_host.py),
+    as the reference's does."""
+    from compu_tpu.formats.zstd import encode as ref_enc
+
     vec = ByteVec()
     Interface.zstd(device="cpu").encode_vec_full(TEXT, vec, EncodeOp.Finish)
     assert vec.data() == _port_frame(TEXT)
-    with pytest.raises(ValueError, match="tokenizer"):
-        port_enc.compress_block(TEXT[:1000])
+    assert port_enc.compress_block(TEXT[:1000]) == ref_enc.compress_block(TEXT[:1000], 3)
 
 
 # ---------------------------------------------------------------------------
