@@ -9,7 +9,11 @@ benchmark corpus (``compu_tpu_torch.utils.corpus.build_corpus``; 64
 blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
 
 * **gzip_lex**, the flagship deployment: level-6 gzip with the segment
-  index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``;
+  index, through ``make_block_encode_fn`` and ``BlockParallelEncoder``:
+  each group of 16 blocks one ``encode_blocks_dyn`` batch, whose table
+  stage (trees, header, block types) is one launch of P5
+  (``csrc/build_tables.cu``), as on the hash paths and in mesh_encode's
+  step;
 * **gzip_decode**: that stream read back with its index through
   ``BlockParallelDecoder()``: 4 batches of 16 blocks, each one launch of
   the segment token scan (P3, ``csrc/inflate_scan.cu``), the expansion
@@ -83,7 +87,7 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   native decoder;
 * **gzip_v1**: the v1 block step, ``make_block_encode_fn(kernel="v1")``
   (plain PyTorch on the card: the chain walk, fixed-Huffman blocks, the
-  lane crc; none of the nine kernels, checked) over the 64 blocks through
+  lane crc; none of the ten kernels, checked) over the 64 blocks through
   ``BlockParallelEncoder``: stdlib zlib decodes it, it is the CPU's
   stream (``V1_STREAM``: its length and sha256), one step over the
   first 16 blocks launches CUDA kernels under torch.profiler (counted),
@@ -111,8 +115,8 @@ failure:
    and ``> 0``), exactly, and time both with CUDA events: k back-to-back
    launches between one pair of events, divided by k, the median of 5 such
    runs (see ``device_ms``; a plain twin whose check call takes 0.1 s or
-   more, P1's and P2's, is timed by that call on the host clock, as
-   ``SLOW_TWIN_S`` says). Each kernel's bound is the larger of the bytes
+   more, and every chain kernel's twin, P1-P5's, is timed by that call on
+   the host clock, as ``SLOW_TWIN_S`` says). Each kernel's bound is the larger of the bytes
    it must move over the card's memory rate and the integer operations it
    must do over the card's INT32 rate, both counted from this run's inputs
    (B1's cost per candidate read from the built kernel's SASS,
@@ -206,7 +210,17 @@ JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
 ``launches_per_encode`` (per decode for P2, P3 and P4), and
 ``library_ms`` null with the reason: no one PyTorch call computes any of
-the nine functions. P1's, P2's and P3's entries also carry ``cycles_per_step``
+the ten functions. P5 (the table stage) is held at the first group of
+gzip_lex and of each hash path, at mesh_encode's 64-block batch, and on
+a synthetic sweep of 64 rows with flat-tree rows and inexact flat keys
+(``other_shapes``); its entries also carry ``launch_only_ms`` (the
+launch without the wrapper's seeding and start lengths in torch), the
+steps its trees take and the rows that take the flat tree; its bound is
+its slowest block's chain of tree steps, each one dependent warp-wide
+reduction, measured in this run (``smoke_csrc/redux_chase.cu``, the
+``redux`` line); the run fails unless it launches 4 times an encode on
+gzip_lex and the hash paths and once a mesh step. P1's, P2's, P3's and
+P5's entries also carry ``cycles_per_step``
 (kernel ms at the SM clock of the shared-memory chase, over the longest
 chain's steps; P3's steps are its longest lane's table reads),
 ``sass_per_step`` (one step of the main loop in the built SASS, by pipe;
@@ -277,6 +291,7 @@ from compu_tpu_torch.formats.zstd import native_enc as zstd_native_enc
 from compu_tpu_torch.formats.zstd import tables as zstd_tables
 from compu_tpu_torch.formats.zstd.encode import MAX_BLOCK as ZSTD_BLOCK
 from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
+from compu_tpu_torch.kernels import build_tables as bt
 from compu_tpu_torch.kernels import deflate_v2, deflate_v3, inflate_dyn, inflate_lut, u32
 from compu_tpu_torch.kernels import inflate as inflate_mod
 from compu_tpu_torch.kernels import inflate_spec, zstd_lit_decode, zstd_seq
@@ -390,8 +405,8 @@ LIT_BLOCK = 1 << 17
 
 # The kernels each path must launch.
 PATHS = {
-    "gzip_lex": ("lcp_candidates", "parse_cover", "emit_pack"),
-    **{p: ("match_candidates", "parse_cover", "emit_pack") for p in HASH_PATHS},
+    "gzip_lex": ("lcp_candidates", "parse_cover", "emit_pack", "build_tables"),
+    **{p: ("match_candidates", "parse_cover", "emit_pack", "build_tables") for p in HASH_PATHS},
     "adler_device": ("adler_tiles",),
     "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
     "zstd_decode": ("huf_decode_lanes",),
@@ -400,13 +415,13 @@ PATHS = {
     "brotli_device": ("lcp_candidates", "parse_cover"),
     "gzip_fixed_v2": ("lcp_candidates", "parse_cover", "emit_pack"),
     "gzip_fixed_v2_decode": ("inflate_scan",),
-    "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack"),
+    "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack", "build_tables"),
     # The host backends, routes and engines: they launch no kernel
     # (checked: every count 0).
     **{p: () for p in ("zlib_host", "zlib_native", "zstd_native", "brotli_native",
                        "gzip_decode_host", "native_twins", "zstd_host", "zstd_host_l19",
                        "brotli_host", "zlib_host_parallel", "zstd_parallel")},
-    # The v1 step: plain PyTorch on the card, none of the nine kernels
+    # The v1 step: plain PyTorch on the card, none of the ten kernels
     # (checked); its CUDA kernels are counted under torch.profiler.
     "gzip_v1": (),
 }
@@ -442,7 +457,7 @@ TWIN_BYTES = 1 << 20
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All nine kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All ten kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -458,7 +473,8 @@ LCP_COST: dict = {}
 LCP_FAR_COST: dict = {}
 MATCH_COST: dict = {}
 # This script's own CUDA sources, built beside the package's kernels: the
-# shared-memory chase that measures P1's, P2's and P3's bound unit.
+# shared-memory chase that measures P1-P4's bound unit, the warp-reduction
+# chase that measures P5's, and B2's copy floor (read by ab_chains.py).
 SMOKE_SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "smoke_csrc").glob("*.cu"))
 
 
@@ -591,19 +607,20 @@ def sass_loops(lib_path, symbol: str) -> list[list[tuple]]:
 
 
 def sass_step_loop(lib_path, symbol: str, load: str, loads_per_step: int,
-                   steps: int) -> dict:
+                   steps: int, pick=min) -> dict:
     """One step of a chain kernel's main loop in the built library's SASS:
     the loop of kernel ``symbol`` that holds ``loads_per_step * steps``
-    shared loads of opcode ``load`` (the table reads), i.e. ``steps`` steps
-    an iteration (of several, the smallest of those that read no device
-    memory: P2's path over staged rows); its instructions by pipe divided
-    by ``steps``, and the iteration's whole count."""
+    instructions of opcode ``load`` (the table reads), i.e. ``steps`` steps
+    an iteration (of several, by ``pick``: the smallest of those that read
+    no device memory, P2's path over staged rows; P5 takes the largest, its
+    lit/len tree's step); its instructions by pipe divided by ``steps``,
+    and the iteration's whole count."""
     want = loads_per_step * steps
     fits = [body for body in sass_loops(lib_path, symbol)
             if sum(op == load for _, op, _ in body) == want]
     if not fits:
         raise AssertionError(f"no loop of {symbol} with {want} {load} in {lib_path.name}")
-    body = min(fits, key=lambda b: (any(op.startswith("LDG") for _, op, _ in b), len(b)))
+    body = pick(fits, key=lambda b: (any(op.startswith("LDG") for _, op, _ in b), len(b)))
     counts = collections.Counter(_pipe(op) for _, op, _ in body)
     return {"steps_per_iteration": steps, "iteration_instructions": len(body),
             **{k: counts[k] / steps for k in ("alu", "fma", "xu", "mem")}}
@@ -765,29 +782,132 @@ def spec_scan_work(args, kw, outs):
                       f"run (smoke_csrc/smem_chase.cu)"}
 
 
+def _chase(entry: str, steps: int) -> dict:
+    """One launch of a chase of this script's library (``entry``, after a
+    warm one): ``ns`` a link from CUDA events around the launch, ``cycles``
+    a link from the SM's clock64 inside it."""
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(ctypes.CDLL(str(_build.build(SMOKE_SOURCES, "libcompu_smoke"))), entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(out.data_ptr(), steps, stream):
+        raise RuntimeError(f"{entry} failed to launch")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(out.data_ptr(), steps, stream)
+    end.record()
+    torch.cuda.synchronize()
+    return {"ns": start.elapsed_time(end) * 1e6 / steps, "cycles": int(out[1]) / steps,
+            "steps": steps}
+
+
 @functools.lru_cache(maxsize=1)
 def smem_round_trip(steps: int = 1 << 20) -> dict:
     """One dependent shared-memory read on this card: one thread chases
     ``i = ring[i]`` through shared memory ``steps`` times
-    (``smoke_csrc/smem_chase.cu``). ``ns`` from CUDA events around the
-    launch, ``cycles`` from the SM's clock64 inside it, both per read."""
-    out = torch.zeros(2, dtype=torch.int64, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = ctypes.CDLL(str(_build.build(SMOKE_SOURCES, "libcompu_smoke")))
-    lib.compu_smem_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.compu_smem_chase.restype = ctypes.c_int
-    if lib.compu_smem_chase(out.data_ptr(), steps, stream):
-        raise RuntimeError("compu_smem_chase failed to launch")
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    lib.compu_smem_chase(out.data_ptr(), steps, stream)
-    end.record()
-    torch.cuda.synchronize()
-    res = {"ns": start.elapsed_time(end) * 1e6 / steps, "cycles": int(out[1]) / steps,
-           "steps": steps}
+    (``smoke_csrc/smem_chase.cu``), per read."""
+    res = _chase("compu_smem_chase", steps)
     log("smem dependent shared-memory read " + json.dumps(res))
     return res
+
+
+@functools.lru_cache(maxsize=1)
+def redux_round_trip(steps: int = 1 << 20) -> dict:
+    """One dependent warp-wide reduction on this card: one warp runs ``v =
+    __reduce_max_sync(v + lane)`` ``steps`` times
+    (``smoke_csrc/redux_chase.cu``), per reduction."""
+    res = _chase("compu_redux_chase", steps)
+    log("redux dependent warp reduction " + json.dumps(res))
+    return res
+
+
+def build_tables_work(args, kw, outs):
+    """P5's chain: per block, the steps of the lit/len and of the distance
+    tree that change a length (the two run side by side, so the longer
+    counts; a step that changes nothing ends its loop), then the
+    code-length tree's steps; the slowest block's chain, each step at least
+    one dependent warp-wide reduction (the argmax over the tree's symbols;
+    ``redux_round_trip``). Bytes: the histograms, extra bits and block
+    lengths in, the tables out. Also counts the rows whose loops leave a
+    tree incomplete (the flat-tree fallback) and, of those, the rows with
+    a frequency past the flat key's exact range."""
+    lf, df, xl, xd, ns = args
+    lf, df = bt.seed_histograms(lf, df)
+    lit_len, dist_len = bt.build_lengths(lf, bt.CAPBITS), bt.build_lengths(df, bt.CAPBITS)
+    cl_freq = bt.code_length_histogram(torch.cat([lit_len, dist_len], -1))
+    steps, flat = {}, torch.zeros(len(lf), dtype=torch.bool, device=lf.device)
+    for tree, freq, cap, final in (("lit", lf, bt.CAPBITS, lit_len),
+                                   ("dist", df, bt.CAPBITS, dist_len),
+                                   ("cl", cl_freq, bt.CLCAP, bt.build_lengths(cl_freq, bt.CLCAP))):
+        l, steps[tree] = bt.length_loops(freq, cap, count=True)
+        flat |= (l != final).any(-1)  # the loops' lengths, unless the flat tree replaced them
+    chain = torch.maximum(steps["lit"], steps["dist"]) + steps["cl"]
+    longest = int(chain.max())
+    inexact = flat & (lf * bt.NLIT > 1 << 24).any(-1)
+    red = redux_round_trip()
+    return _nbytes(*args, *outs), longest, {
+        "ops_ms": longest * red["ns"] * 1e-6, "ns_per_op": red["ns"],
+        "steps_max": {k: int(v.max()) for k, v in steps.items()},
+        "steps_mean": {k: float(v.double().mean()) for k, v in steps.items()},
+        "flat_tree_rows": int(flat.sum()), "inexact_key_rows": int(inexact.sum()),
+        # The reference's loops run all 16 + 64 steps of a tree, changed or not.
+        "every_step_chain_ms": 2 * 80 * red["ns"] * 1e-6,
+        "bound_note": f"the slowest block's dependent tree steps (max(lit, dist) + cl, "
+                      f"{longest}) x one warp-wide reduction, {red['cycles']:.2f} cycles "
+                      f"({red['ns']:.3f} ns) each, measured in this run by one warp chaining "
+                      f"__reduce_max_sync {red['steps']} times (smoke_csrc/redux_chase.cu)"}
+
+
+def synthetic_tables_inputs(device) -> tuple:
+    """P5's synthetic sweep: 64 rows from a numpy seed, 16 of each kind:
+    near-uniform lit/len histograms over 140-286 symbols (the fill loop
+    cannot finish: the flat tree); the same at frequencies of 58,661 and
+    more with ties (the flat tree's float32 key is inexact); skewed ones
+    with empty, one-symbol and full distance trees (the seeding); and tiny
+    ones, only EOB or a few literals (fixed codes, stored blocks)."""
+    rng = np.random.default_rng(2024)
+    B = 64
+    lit = np.zeros((B, bt.NLIT), np.int64)
+    dist = np.zeros((B, bt.NDIST), np.int64)
+    for r in range(B):
+        kind, t = divmod(r, 16)
+        if kind < 2:
+            nsym = 140 + 9 * t
+            low = 900 if kind == 0 else 58_661
+            lit[r, rng.permutation(bt.NLIT)[:nsym]] = rng.integers(low, low + 20, nsym)
+            dist[r] = rng.integers(0, 400, bt.NDIST) if t % 2 else 0
+        elif kind == 2:
+            nsym = int(rng.integers(2, bt.NLIT + 1))
+            lit[r, rng.permutation(bt.NLIT)[:nsym]] = rng.multinomial(
+                1 << 18, rng.dirichlet(np.full(nsym, 0.3)))
+            ndist = (0, 1, bt.NDIST, int(rng.integers(2, bt.NDIST)))[t % 4]
+            dist[r, rng.permutation(bt.NDIST)[:ndist]] = rng.integers(1, 3000, ndist)
+        else:
+            lit[r, rng.integers(32, 127, t)] += 1
+            dist[r, rng.integers(0, bt.NDIST, t // 4)] += 1
+        lit[r, 256] = max(lit[r, 256], 1)
+    xl = rng.integers(0, 1 << 12, B)
+    xd = rng.integers(0, 1 << 14, B)
+    ns = np.minimum(lit[:, :256].sum(-1) + 4 * lit[:, 257:].sum(-1), 1 << 18)
+    return tuple(torch.from_numpy(a).to(device) for a in (lit, dist, xl, xd, ns))
+
+
+def p5_launch_only_ms(args) -> float:
+    """P5's launch alone (``launch_p5``) on the seeded histograms and start
+    lengths the wrapper would hand it, timed as :func:`device_ms` times."""
+    lf, df, xl, xd, ns = args
+    lf, df = bt.seed_histograms(lf, df)
+    prepared = (lf, df, bt.start_lengths(lf, bt.CAPBITS), bt.start_lengths(df, bt.CAPBITS),
+                xl, xd, ns)
+    return device_ms(bt.launch_p5, prepared, {}, k=50)
+
+
+def tables_tuple(fn):
+    """A table-stage function with its dict of outputs as a tuple, in key
+    order, as the report compares and times kernels."""
+    return lambda *args: tuple(fn(*args).values())
 
 
 def match_work(args, kw, outs):
@@ -910,10 +1030,18 @@ KERNELS = {
                            replaces_note="spec_scan_wave, a jax.lax.while_loop (inflate_spec.py"
                                          ":162) over its step (:76), not a TPU kernel",
                            defined=spec_defined),
+    "build_tables": Kernel(tables_tuple(bt.build_tables_cuda), tables_tuple(bt.build_tables_torch),
+                           "compu_tpu_torch/csrc/build_tables.cu",
+                           "compu_tpu/kernels/deflate_jax_v3.py:288",
+                           ("gzip_lex", *HASH_PATHS, "mesh_encode"), build_tables_work,
+                           replaces_note="build_lengths' jax.lax.fori_loops (deflate_jax_v3.py:119"
+                                         ", :139) and canonical_codes' jax.lax.scan (:170) under "
+                                         "jax.vmap(_build_tables) (:640), not a TPU kernel"),
 }
-# A twin whose call for the equality check takes this long or more (P1's
-# and P2's, Python loops of tiny launches a step) is timed by that call on
-# the host clock, synchronised; the others with device_ms.
+# A twin whose call for the equality check takes this long or more, and a
+# chain kernel's twin (P1-P5's: Python loops of tiny launches a step), is
+# timed by that call on the host clock, synchronised; the others with
+# device_ms.
 SLOW_TWIN_S = 0.1
 
 
@@ -933,14 +1061,17 @@ def split_blocks(data: bytes, bs: int = BLOCK):
 
 
 def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
-                  zstd_call: torch.Tensor, scan_args):
-    """The inputs each kernel receives on its path: B1-B3 and B5 for the
-    (B, N) blocks as the port's stages compute them (B1-B3 also as the v2
-    route computes them, and B1 with the far tie at the gzip_lex shape,
+                  zstd_call: torch.Tensor, scan_args, all_blocks: torch.Tensor,
+                  all_lens: torch.Tensor):
+    """The inputs each kernel receives on its path: B1-B3, B5 and P5 for
+    the (B, N) blocks as the port's stages compute them (B1-B3 also as the
+    v2 route computes them, and B1 with the far tie at the gzip_lex shape,
     ``(lcp_candidates, far)``), B4 the flat bytes, B1
     and B2 for the zstd and brotli paths' (1, 2^20) tokenizer call of the
     corpus's first MiB (max_dist 131,071 and 2^20), P1 the recorded
-    ``scan_args``. Returns {(kernel, path): (args, kw)}."""
+    ``scan_args``, P5 also the histograms of mesh_encode's one batch of
+    ``all_blocks`` and the synthetic sweep (``(build_tables, synthetic)``).
+    Returns {(kernel, path): (args, kw)}."""
     B, N = blocks.shape
     ns = lens.to(torch.int64)
     *wbe, ps = sort_stage_lex(blocks, wcap=LADDER["wcap"], keys=LADDER["lex_keys"],
@@ -962,7 +1093,13 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
         ("adler_tiles", "adler_device"): ((flat,), {}),
         ("fse_seq_scan", "zstd_device"): scan_args,
         ("lcp_candidates", "far"): ((words, ps32), {**lcp_kw, "prefer_far": True}),
+        ("build_tables", "gzip_lex"): ((lf, df, xl, xd, ns), {}),
+        ("build_tables", "synthetic"): (synthetic_tables_inputs(blocks.device), {}),
     }
+    # mesh_encode's step: encode_blocks_dyn's defaults at depth 8, all blocks.
+    mns = all_lens.to(torch.int64)
+    inputs["build_tables", "mesh_encode"] = (_tok_hist_from_match(
+        all_blocks, mns, *match_and_parse_batch(all_blocks, mns, depth=8))[1:] + (mns,), {})
     # The v2 route's match_and_parse_batch (its defaults, depth V2_DEPTH)
     # and its fixed-code fields.
     *vbe, vps = sort_stage_lex(blocks, wcap=32, keys=2, stride=1)
@@ -1000,6 +1137,8 @@ def kernel_inputs(blocks: torch.Tensor, lens: torch.Tensor, flat: torch.Tensor,
         inputs["match_candidates", path] = (
             (hs.reshape(-1).to(torch.int32), hps.reshape(-1).to(torch.int32), hwords),
             dict(depth=cfg["depth"], max_dist=MAX_DIST, block_elems=N))
+        inputs["build_tables", path] = (_tok_hist_from_match(
+            blocks, ns, *match_and_parse_batch(blocks, ns, **cfg))[1:] + (ns,), {})
     return inputs
 
 
@@ -1040,7 +1179,7 @@ def as_tuple(x):
 
 def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all nine are integer functions; only the defined outputs,
+    (tolerance 0: all ten are integer functions; only the defined outputs,
     ``Kernel.defined``), both timed, and the kernel's bound from the same
     inputs."""
     kernel, twin = spec.kernel, spec.twin
@@ -1063,7 +1202,8 @@ def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = chain.pop("ops_ms", ops / INT32_OPS_PER_S * 1e3)
     ms = device_ms(kernel, args, kw, k=50)
-    plain_ms = twin_s * 1e3 if twin_s >= SLOW_TWIN_S else device_ms(twin, args, kw, k=20)
+    slow = twin_s >= SLOW_TWIN_S or name in CHAIN_KERNELS
+    plain_ms = twin_s * 1e3 if slow else device_ms(twin, args, kw, k=20)
     res = {"path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1086,7 +1226,8 @@ def _lanes_smem(args, kw) -> int:
 # The chain kernels: per kernel, the SASS symbol of its kernel, the opcode
 # of its table reads and their number a step, its steps an iteration of
 # the main loop and the dynamic shared memory a block asks for, both for
-# the inputs (args, kw). P1 walks 8 steps an iteration; P2 64 // max_bits
+# the inputs (args, kw), and optionally how to pick among the loops that
+# fit (sass_step_loop). P1 walks 8 steps an iteration; P2 64 // max_bits
 # (16 at most; its max_bits is args[5]); P3 one iteration of its loop
 # for lanes whose reads all lie in the staged span: the three shared reads
 # of its 64-bit window and its two table reads (a match, or up to two
@@ -1101,6 +1242,11 @@ CHAIN_KERNELS = {
     "inflate_scan": ("inflate_scan_kernelILi12EE", "LDS", 5, lambda args, kw: 1,
                      lambda args, kw: _build.lib().compu_inflate_scan_smem(
                          args[3].shape[1].bit_length() - 1, kw["k"], kw["rsteps"])),
+    # P5: a tree step ends in one shuffle (the changed symbol's Kraft
+    # difference from its lane); the longest such loop, the lit/len tree's
+    # (9 symbols a lane). Static shared memory only.
+    "build_tables": ("build_tables_kernel", "SHFL.IDX", 1, lambda args, kw: 1,
+                     lambda args, kw: 0, max),
 }
 
 
@@ -1109,10 +1255,11 @@ def chain_report(name: str, res: dict, args, kw) -> dict:
     x the SM clock of this run's shared-memory chase / the longest chain's
     steps), one step of its main loop in the SASS by pipe, and the dynamic
     shared memory it asks for."""
-    symbol, load, loads, steps, smem = CHAIN_KERNELS[name]
+    symbol, load, loads, steps, smem, *pick = CHAIN_KERNELS[name]
     chase = smem_round_trip()
-    per = sass_step_loop(_build.build(), symbol, load, loads, steps(args, kw))
-    out = {"cycles_per_step": res["ms"] * 1e6 / res["ops"] * chase["cycles"] / chase["ns"],
+    per = sass_step_loop(_build.build(), symbol, load, loads, steps(args, kw), *pick)
+    ms = res.get("launch_only_ms", res["ms"])  # P5: its launch without the wrapper's torch ops
+    out = {"cycles_per_step": ms * 1e6 / res["ops"] * chase["cycles"] / chase["ns"],
            "sass_per_step": per, "dynamic_smem_bytes": smem(args, kw)}
     log(f"sass {name} per step " + json.dumps(per))
     return out
@@ -1146,6 +1293,24 @@ def check_kernels(inputs: dict, names) -> list[dict]:
             entry["other_shapes"] = [far]
         if name == "match_candidates":
             entry["sass_per_candidate"] = dict(MATCH_COST)
+        if name == "build_tables":
+            for res in (first, *others):
+                res["launch_only_ms"] = p5_launch_only_ms(inputs[name, res["path"]][0])
+                res["launch_only_share_of_bound"] = res["bound_ms"] / res["launch_only_ms"]
+                log(f"build_tables ({res['path']}): the launch alone {res['launch_only_ms']:.4f} "
+                    f"ms, share {res['launch_only_share_of_bound']:.3f}; steps "
+                    f"{res['steps_max']} (max), flat-tree rows {res['flat_tree_rows']}")
+            entry.update((k, first[k]) for k in ("launch_only_ms", "launch_only_share_of_bound"))
+            syn = hold_to_twin(name, "gzip_lex", spec, *inputs[name, "synthetic"])
+            if syn["flat_tree_rows"] == 0 or syn["inexact_key_rows"] == 0:
+                raise AssertionError(f"the synthetic sweep takes no flat tree or no inexact key: "
+                                     f"{syn['flat_tree_rows']}, {syn['inexact_key_rows']}")
+            syn.update(shape="the synthetic sweep (synthetic_tables_inputs): 64 rows, flat-tree "
+                             "rows and inexact flat keys among them; no path sends it",
+                       launches=0)
+            log(f"build_tables (synthetic): {syn['flat_tree_rows']} flat-tree rows, "
+                f"{syn['inexact_key_rows']} with inexact keys, equal to the plain version")
+            entry["other_shapes"] = [syn]
         if name in CHAIN_KERNELS:
             entry.update(chain_report(name, first, *inputs[name, first["path"]]))
         if others:
@@ -2768,7 +2933,7 @@ def gzip_v1_path(corpus: bytes, blocks: np.ndarray, lens: np.ndarray) -> dict:
     the corpus's 64 blocks through ``BlockParallelEncoder``: one warm
     encode, three timed; stdlib zlib gives the corpus back; one step over
     the first group runs under torch.profiler and must launch CUDA kernels
-    (the step ran on the card; none of the nine hand kernels is on its
+    (the step ran on the card; none of the ten hand kernels is on its
     path); the CPU's step over the first group gives the card's bytes,
     lengths and checks. Then ``byte_histogram`` of the corpus on the card
     equals ``np.bincount``."""
@@ -3035,7 +3200,8 @@ def main() -> None:
     zstd_call = torch.from_numpy(np.frombuffer(corpus[:ZSTD_SPAN], np.uint8).copy()[None]).cuda()
     kernels = check_kernels(
         kernel_inputs(torch.from_numpy(blocks[:16]).cuda(), torch.from_numpy(lens[:16]).cuda(),
-                      torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args),
+                      torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args,
+                      torch.from_numpy(blocks).cuda(), torch.from_numpy(lens).cuda()),
         [name for name in KERNELS
          if name not in ("huf_decode_lanes", "inflate_scan", "inflate_spec")])
     runs = {}
@@ -3069,6 +3235,11 @@ def main() -> None:
             entry["launches_per_encode"] = entry["launches"] / run["runs_counted"]
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in runs.items()
                                  if r["launches"].get(k["name"])}
+    # P5: one launch a batch, GROUPS batches an encode, one a mesh step.
+    for p in ("gzip_lex", *HASH_PATHS, "mesh_encode"):
+        per = runs[p]["launches"]["build_tables"] / runs[p]["runs_counted"]
+        if per != (1 if p == "mesh_encode" else GROUPS):
+            raise AssertionError(f"{p}: {per} build_tables launches an encode")
     cpu_equals_device(blocks[:4], lens[:4], "gzip_lex", with_index=True, check="crc", **LADDER)
     for p, cfg in HASH_PATHS.items():
         cpu_equals_device(blocks[:4], lens[:4], p, with_index=True, check="adler", **cfg)

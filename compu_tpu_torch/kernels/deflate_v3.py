@@ -5,8 +5,9 @@ Port of ``compu_tpu/kernels/deflate_jax_v3.py``. Blocks are a leading
 dimension everywhere (the reference vmaps and lax.maps over them). The
 TPU's one-hot matrix-product tricks become what a GPU does directly:
 histograms are scatter-adds, table lookups are gathers, and the coarse
-placement of segment rows into the output is one scatter-add. The packing
-of fields into segment rows is the ``emit_pack`` kernel. Output bytes,
+placement of segment rows into the output is one scatter-add. The per-block
+trees and header are kernel P5 (``build_tables``), the packing of fields
+into segment rows the ``emit_pack`` kernel. Output bytes,
 metas ``[len, check]`` and ``seg_bits`` equal the reference's.
 """
 
@@ -18,107 +19,14 @@ import torch.nn.functional as F
 from ..formats.deflate import consts
 
 from . import u32
+# build_lengths and canonical_codes are imported from here too.
+from .build_tables import build_lengths, build_tables, canonical_codes  # noqa: F401
 from .checksum import _block_checksum
 from .deflate_v2 import SEG, cover_overflow, match_and_parse_batch
 from .emit_pack import W2, emit_pack
 from .tables import NDIST, NLIT, on_device
 
-CAPBITS = 12   # max lit/len/dist code length (keeps every field in 4 bytes)
-CLCAP = 7      # max code-length-code length (RFC limit)
 W_SLACK = 256  # output-buffer slack past cap
-
-
-def _log2_f32(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.log2`` as the reference computes it: float32 log(x) / log(2),
-    divided by a float32 tensor (a Python scalar divisor may become a
-    multiply by its reciprocal, which rounds differently)."""
-    return torch.log(x) / on_device("ln2_f32", x.device)
-
-
-def _rev_bits(x: torch.Tensor, bits: torch.Tensor, maxbits: int = 15) -> torch.Tensor:
-    """Reverse ``x`` within ``bits`` bits."""
-    r = torch.zeros_like(x)
-    for i in range(maxbits):
-        r = r | (((x >> i) & 1) << (maxbits - 1 - i))
-    return r >> (maxbits - bits)
-
-
-# ---------------------------------------------------------------------------
-# Canonical Huffman construction
-# ---------------------------------------------------------------------------
-
-def build_lengths(freq: torch.Tensor, cap: int, fill_iters: int = 64,
-                  fix_iters: int = 16) -> torch.Tensor:
-    """Code lengths (B, A) int64 forming a complete prefix code with all
-    lengths <= cap, from (B, A) frequencies with >= 2 used symbols per row.
-    ceil(-log2 p) start in float32, a bounded lengthening loop for Kraft
-    overflow, a bounded exact-fill loop, and a flat complete tree as the
-    fallback — each step as the reference takes it."""
-    B, A = freq.shape
-    dev = freq.device
-    rows = torch.arange(B, device=dev)
-    freq = freq.to(torch.int64)
-    used = freq > 0
-    nused = used.sum(-1)
-    total = freq.sum(-1).to(torch.float32)
-    p = freq.to(torch.float32) / torch.clamp(total, min=1.0)[:, None]
-    l0 = torch.ceil(-_log2_f32(torch.clamp(p, min=2.0 ** -30)))
-    l = torch.where(used, torch.clamp(l0, 1, cap).to(torch.int64), 0)
-    budget = 1 << cap
-
-    def units(l):
-        return torch.where(used & (l > 0), budget >> torch.clamp(l, max=cap), 0)
-
-    for _ in range(fix_iters):
-        u = units(l)
-        over = u.sum(-1) - budget
-        score = torch.where(used & (l < cap) & (l > 0), u, -1)
-        j = score.argmax(-1)
-        l[rows, j] += (over > 0).to(torch.int64)
-
-    freq_f = freq.to(torch.float32)
-    for _ in range(fill_iters):
-        u = units(l)
-        slack = budget - u.sum(-1)
-        fits = used & (l > 1) & (u <= slack[:, None]) & (u > 0)
-        score = torch.where(fits, freq_f / torch.clamp(u, min=1).to(torch.float32),
-                            -1.0)
-        j = score.argmax(-1)
-        do = (slack > 0) & (score[rows, j] > 0)
-        l[rows, j] -= do.to(torch.int64)
-
-    ok = units(l).sum(-1) == budget
-    k = torch.ceil(_log2_f32(torch.clamp(nused.to(torch.float32), min=2.0))
-                   ).to(torch.int64)
-    n_short = (1 << k) - nused
-    idx = torch.arange(A, device=dev)
-    key = (torch.where(used, -freq, 1).to(torch.float32) * A
-           + idx.to(torch.float32))
-    order = torch.argsort(key, dim=-1, stable=True)
-    rank = torch.empty_like(order).scatter_(1, order, idx.expand(B, A))
-    flat = torch.clamp(torch.where(rank < n_short[:, None], (k - 1)[:, None],
-                                   k[:, None]), min=1)
-    flat = torch.where(used, flat, 0)
-    return torch.where(ok[:, None], l, flat)
-
-
-def canonical_codes(lengths: torch.Tensor, maxbits: int = 15) -> torch.Tensor:
-    """Bit-reversed canonical codes (B, A) int64 from (B, A) lengths
-    (RFC1951 §3.2.2)."""
-    B = lengths.shape[0]
-    classes = torch.arange(1, maxbits + 1, device=lengths.device)
-    lens1h = (lengths[:, :, None] == classes).to(torch.int64)  # (B, A, maxbits)
-    bl_count = lens1h.sum(1)
-    code = torch.zeros(B, dtype=torch.int64, device=lengths.device)
-    first = []
-    for m in range(maxbits):
-        prev_count = bl_count[:, m - 1] if m else torch.zeros_like(code)
-        code = (code + prev_count) << 1
-        first.append(code)
-    first = torch.stack(first, -1)
-    rank = torch.cumsum(lens1h, 1) - lens1h
-    codes = (lens1h * (first[:, None, :] + rank)).sum(-1)
-    return _rev_bits(codes, torch.clamp(lengths, min=1), maxbits)
 
 
 # ---------------------------------------------------------------------------
@@ -191,66 +99,9 @@ def _tok_hist_from_match(datas, ns, is_tok, best_len, best_dist):
 
 
 def _build_tables(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns):
-    """Trees, header fields and the block-type choice, per block."""
-    B = lit_freq.shape[0]
-    dev = lit_freq.device
-    fixed_lit, fixed_dist = on_device("fixed_lit", dev), on_device("fixed_dist", dev)
-    # >= 2 used symbols per tree: lit always has EOB, seed symbol 0; dist
-    # may be empty, seed codes 0 and 1.
-    lit_freq = lit_freq.clone()
-    dist_freq = dist_freq.clone()
-    lit_freq[:, 0] += ((lit_freq > 0).sum(-1) < 2).to(torch.int64)
-    need = (dist_freq > 0).sum(-1) < 2
-    dist_freq[:, 0] += (need & (dist_freq[:, 0] == 0)).to(torch.int64)
-    dist_freq[:, 1] += ((dist_freq > 0).sum(-1) < 2).to(torch.int64)
-
-    lit_len = build_lengths(lit_freq, CAPBITS)
-    dist_len = build_lengths(dist_freq, CAPBITS)
-    extra = extra_l_bits + extra_d_bits
-    dyn_body = (lit_freq * lit_len).sum(-1) + (dist_freq * dist_len).sum(-1) + extra
-    fix_body = (lit_freq * fixed_lit).sum(-1) + (dist_freq * fixed_dist).sum(-1) + extra
-
-    # Header: the code-length tree over the 316 lengths (no run coding).
-    all_lens = torch.cat([lit_len, dist_len], -1)
-    cl_freq = torch.zeros(B, 19, dtype=torch.int64, device=dev).scatter_add_(
-        1, all_lens, torch.ones_like(all_lens))
-    cl_freq[:, 1] += ((cl_freq > 0).sum(-1) < 2).to(torch.int64)
-    cl_len = build_lengths(cl_freq, CLCAP)
-    cl_code = canonical_codes(cl_len, CLCAP)
-    hb_lens = cl_len.gather(1, all_lens)
-    dyn_cost = dyn_body + 14 + 19 * 3 + hb_lens.sum(-1)
-    use_dyn = dyn_cost < fix_body
-    huff_cost = torch.minimum(dyn_cost, fix_body)
-    stored_cost = 8 * (ns + 5 * ((ns + 65534) // 65535))
-    use_stored = stored_cost < huff_cost
-
-    ud = use_dyn[:, None]
-    lit_len_sel = torch.where(ud, lit_len, fixed_lit)
-    dist_len_sel = torch.where(ud, dist_len, fixed_dist)
-    # Fixed codes come from the full 288-symbol tree (codes 286/287 shift
-    # the 9-bit first code); dynamic trees are self-defined over 286.
-    fixed_lit_code = canonical_codes(on_device("fixed_lit288", dev)[None], 15)[:, :NLIT]
-    lit_code = torch.where(ud, canonical_codes(lit_len, 15), fixed_lit_code)
-    lit_code = torch.where(lit_len_sel > 0, lit_code, 0)
-    dist_code = torch.where(ud, canonical_codes(dist_len, 15),
-                            canonical_codes(fixed_dist[None], 15))
-
-    # Header fields (1 + 19 + 316), values and widths; a fixed-tree block
-    # has only its 3-bit header (bfinal=0, btype=01).
-    hdr_first = 4 | (29 << 3) | (29 << 8) | (15 << 13)  # btype=10, HLIT HDIST HCLEN
-    hdr_vals = torch.cat([torch.full((B, 1), hdr_first, device=dev),
-                          cl_len[:, on_device("cl_order", dev)], cl_code.gather(1, all_lens)], -1)
-    hdr_bits = torch.cat([torch.full((B, 1), 17, device=dev),
-                          torch.full((B, 19), 3, device=dev), hb_lens], -1)
-    fixed_vals = torch.zeros_like(hdr_vals)
-    fixed_vals[:, 0] = 2
-    fixed_bits = torch.zeros_like(hdr_bits)
-    fixed_bits[:, 0] = 3
-    hdr_vals = torch.where(ud, hdr_vals, fixed_vals)
-    hdr_bits = torch.where(ud, hdr_bits, fixed_bits)
-    return dict(lit_len=lit_len_sel, lit_code=lit_code, dist_len=dist_len_sel,
-                dist_code=dist_code, hdr_vals=hdr_vals, hdr_bits=hdr_bits,
-                header_total=hdr_bits.sum(-1), use_stored=use_stored)
+    """Trees, header fields and the block-type choice, per block: kernel P5
+    on CUDA, its plain version on the CPU (``build_tables``)."""
+    return build_tables(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns)
 
 
 # ---------------------------------------------------------------------------

@@ -107,9 +107,18 @@ _ON_DEVICE = {
 }
 
 
+# Tables that the device computes for itself, with the torch ops of the
+# code they stand in for, so that they round as that code does there:
+# name -> function of (device, *args), registered by the module that owns
+# the code (``build_tables``: "cl_start_len", "flat_k").
+BUILT_ON_DEVICE: dict = {}
+
+
 @functools.lru_cache(maxsize=None)
 def on_device(name: str, device: torch.device, *args) -> torch.Tensor:
-    """The constant table ``name`` as a tensor on ``device``, uploaded once
-    per device and then shared, so an encode uploads only its blocks.
-    Callers must not write to it."""
+    """The constant table ``name`` as a tensor on ``device``, uploaded (or
+    computed there) once per device and then shared, so an encode uploads
+    only its blocks. Callers must not write to it."""
+    if name in BUILT_ON_DEVICE:
+        return BUILT_ON_DEVICE[name](torch.device(device), *args)
     return to_torch({name: _ON_DEVICE[name](*args)}, device)[name]

@@ -19,6 +19,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from compu_tpu_torch.kernels import tables, u32
+from compu_tpu_torch.kernels.build_tables import build_tables_cuda
 from compu_tpu_torch.kernels.emit_pack import emit_pack_cuda, emit_pack_torch
 from compu_tpu_torch.kernels.lcp_match import (
     lcp_candidates_cuda,
@@ -158,6 +159,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         parse_cover_cuda(torch.ones(256, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         emit_pack_cuda(ps.reshape(1, 256), ps.reshape(1, 256))
+    z = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        build_tables_cuda(torch.ones(2, tables.NLIT, dtype=torch.int64),
+                          torch.ones(2, tables.NDIST, dtype=torch.int64), z, z, z)
 
 
 # ---------------------------------------------------------------------------
