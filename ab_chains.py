@@ -5,6 +5,7 @@
     python3 ab_chains.py parse_cover PARENT_DIR   # B2; PARENT_DIR: commit f8599b4
     python3 ab_chains.py inflate_scan PARENT_DIR  # P3; PARENT_DIR: commit 21570d8
     python3 ab_chains.py inflate_spec PARENT_DIR  # P4; PARENT_DIR: commit bac9186
+    python3 ab_chains.py build_tables PARENT_DIR  # P5; PARENT_DIR: commit ecc7b5f
 
 ``PARENT_DIR`` holds a checkout of the commit named (``git archive``
 unpacked). The earlier kernel is built from it into a library of its own
@@ -73,6 +74,23 @@ clock (``CLOCK_EDITS``): per warp, its loop's cycles and iterations, and
 the long-code walks. Each size's scan loop that reads shared memory goes
 to ``ab_inflate_spec_sass.txt``.
 
+``build_tables``: ``build_tables.cu`` of ecc7b5f is P5 before its
+redesign: its wrapper seeds the histograms and takes the lit/len and
+distance start lengths in torch (the plain version's ``seed_histograms``
+and ``start_lengths`` here), and each fill step divides. On
+``chip_smoke.py``'s three P5 shapes (gzip_lex's first 16-block group,
+mesh_encode's 64-block batch, the synthetic sweep of 64 rows) both
+designs are held to the plain version exactly, then timed in turns,
+wrapper and launch alone of each, forward and back, beside P5's bound
+(``chip_smoke.build_tables_work``: the slowest block's dependent tree
+steps x one measured warp reduction), with the cycles a step at the SM
+clock of a shared-memory chase. The SM clock's chases also give one warp
+reduction (``redux``) and one step of a tree spread over four warps
+(``compu_block_redux_chase`` in ``smoke_csrc/redux_chase.cu``: a warp
+reduction, a word a warp through shared memory, one barrier), the floor
+of the wider design that the kernel's header weighs. Both kernels' loops
+that hold a shuffle (the fill steps) go to ``ab_build_tables_sass.txt``.
+
 The last line is one JSON object with the times.
 """
 
@@ -90,6 +108,7 @@ import torch
 import chip_smoke as cs
 from compu_tpu_torch import _build
 from compu_tpu_torch.kernels import (
+    build_tables as bt,
     inflate_lut,
     inflate_scan,
     inflate_spec,
@@ -160,12 +179,14 @@ def side_by_side(name: str, parent_fn, kernel, twin, args, kw, steps: int, ghz: 
     return res
 
 
-def dump_loops(label: str, lib_path, symbol: str, out) -> None:
-    """Every loop of ``symbol`` that reads shared memory: its length, its
-    instructions by pipe and its opcodes."""
+def dump_loops(label: str, lib_path, symbol: str, out, reads: str = "LDS",
+               longest: int | None = None) -> None:
+    """Every loop of ``symbol`` that holds an opcode starting with ``reads``
+    (shared-memory reads by default), of at most ``longest`` instructions if
+    given: its length, its instructions by pipe and its opcodes."""
     for body in cs.sass_loops(lib_path, symbol):
         ops = [op for _, op, _ in body]
-        if not any(op.startswith("LDS") for op in ops):
+        if not any(op.startswith(reads) for op in ops) or len(ops) > (longest or len(ops)):
             continue
         pipes = collections.Counter(str(cs._pipe(op)) for op in ops)
         line = (f"sass {label} {symbol} loop at 0x{body[0][0]:x}: {len(body)} instructions, "
@@ -391,18 +412,24 @@ CLOCK_EDITS = (
 BLOCK_LANES_LINE = "constexpr int kBlockLanes = 128;"
 
 
-def edited_spec(edits, name: str):
-    """P4 built from this tree's source with each (old, new) of ``edits``
-    made, called as ``spec_scan_wave_cuda``; and its library."""
-    src = (_build.CSRC / "inflate_spec.cu").read_text()
+def edited_library(source: str, edits, name: str) -> pathlib.Path:
+    """This tree's ``csrc/<source>`` with each (old, new) of ``edits`` made,
+    built as a library of its own; its path."""
+    src = (_build.CSRC / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
-            raise AssertionError(f"the edit does not fit the kernel: {old!r}")
+            raise AssertionError(f"the edit does not fit {source}: {old!r}")
         src = src.replace(old, new)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = _build.BUILD_DIR / f"{name}.cu"
     path.write_text(src)
-    lib = _build.build([path], f"lib{name}")
+    return _build.build([path], f"lib{name}")
+
+
+def edited_spec(edits, name: str):
+    """P4 built from this tree's source with each (old, new) of ``edits``
+    made, called as ``spec_scan_wave_cuda``; and its library."""
+    lib = edited_library("inflate_spec.cu", edits, name)
     fn = ctypes.CDLL(str(lib)).compu_inflate_spec
     fn.argtypes, fn.restype = list(_build._SIGNATURES["compu_inflate_spec"]), ctypes.c_int
 
@@ -511,8 +538,224 @@ def inflate_spec_main(parent: pathlib.Path) -> None:
     print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "kernels": res}))
 
 
+# A copy of P5 that reads the SM clock at the end of each phase of a block
+# and writes the readings, with the lit/len and code-length trees' loops,
+# over the first P5_CLOCKS words of the block's hdr_vals row. P5_AFTER
+# names each phase and the phase it follows (the tree warps, and then the
+# code warps, run side by side from the same start). The reads clobber
+# memory, so the compiler keeps them between the shared-memory accesses
+# and barriers around them.
+P5_AFTER = {"start": None, "lit_loaded": "start", "lit_start_lengths": "lit_loaded",
+            "lit_tree": "lit_start_lengths", "dist_tree": "start", "trees_synced": "start",
+            "costs_synced": "trees_synced", "cl_tree": "costs_synced", "cl_codes": "cl_tree",
+            "choice": "cl_codes", "codes": "costs_synced", "codes_synced": "costs_synced",
+            "end": "codes_synced"}
+P5_STEPS = ("lit_lengthening_cycles", "lit_fill_cycles", "lit_lengthening_steps",
+            "lit_fill_steps", "cl_tree_cycles", "cl_tree_steps")
+P5_CLOCKS = len(P5_AFTER) + len(P5_STEPS)
+
+
+def _clock(k: int, who: str = "lane == 0") -> str:
+    return f"    if ({who}) s_clk[{k}] = clk();\n"
+
+
+_AT = {name: k for k, name in enumerate(P5_AFTER)}
+_STEP = {name: len(P5_AFTER) + k for k, name in enumerate(P5_STEPS)}
+P5_CLOCK_EDITS = (
+    ("namespace {\n\nconstexpr",
+     "namespace {\n\n__shared__ long long s_clk[32];\n\n"
+     "__device__ __forceinline__ long long clk() {\n  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t) :: \"memory\");\n"
+     "  return t;\n}\n\nconstexpr"),
+    ("  nused = static_cast<int>(team.sum(__reduce_add_sync(kFull, nused)));\n",
+     "  nused = static_cast<int>(team.sum(__reduce_add_sync(kFull, nused)));\n"
+     "  const long long cf0 = clk();\n  int nfix = 0, nfill = 0;\n"),
+    ("  for (int it = 0; it < kFixIters && sum > budget; ++it) {",
+     "  for (int it = 0; it < kFixIters && sum > budget; ++it, ++nfix) {"),
+    ("  Pick mine = lane_pick<0, NPL>(key, u, budget - sum);\n",
+     "  Pick mine = lane_pick<0, NPL>(key, u, budget - sum);\n  const long long cf1 = clk();\n"),
+    ("  for (int it = 0; it < kFillIters && sum < budget; ++it) {",
+     "  for (int it = 0; it < kFillIters && sum < budget; ++it, ++nfill) {"),
+    ("  if (sum == budget) return;\n",
+     f"  if (nsym == kLit && threadIdx.x == 0) {{\n"
+     f"    s_clk[{_STEP['lit_lengthening_cycles']}] = cf1 - cf0;\n"
+     f"    s_clk[{_STEP['lit_fill_cycles']}] = clk() - cf1;\n"
+     f"    s_clk[{_STEP['lit_lengthening_steps']}] = nfix;\n"
+     f"    s_clk[{_STEP['lit_fill_steps']}] = nfill;\n  }}\n"
+     f"  if (nsym == kCl && lane == 0) {{\n    s_clk[{_STEP['cl_tree_cycles']}] = clk() - cf0;\n"
+     f"    s_clk[{_STEP['cl_tree_steps']}] = nfix + nfill;\n  }}\n  if (sum == budget) return;\n"),
+    ("  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     "  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
+     + _clock(_AT["start"], "tid == 0")),
+    ("    start_lengths(team, freq, l, mid);\n    build_lengths(team, freq, l, kLit, kCap, k_tab, "
+     "s_key);\n",
+     _clock(_AT["lit_loaded"], "tid == 0") + "    start_lengths(team, freq, l, mid);\n"
+     + _clock(_AT["lit_start_lengths"], "tid == 0") + "    build_lengths(team, freq, l, kLit, "
+     "kCap, k_tab, s_key);\n" + _clock(_AT["lit_tree"], "tid == 0")),
+    ("    build_lengths(team, freq, l, kDist, kCap, k_tab, s_key + kLit);\n",
+     "    build_lengths(team, freq, l, kDist, kCap, k_tab, s_key + kLit);\n"
+     + _clock(_AT["dist_tree"])),
+    ("  __syncthreads();\n\n  // Each warp's share",
+     "  __syncthreads();\n" + _clock(_AT["trees_synced"], "tid == 0") + "\n  // Each warp's share"),
+    ("  __syncthreads();\n\n  if (warp == 0) {\n    // The code-length tree",
+     "  __syncthreads();\n" + _clock(_AT["costs_synced"], "tid == 0")
+     + "\n  if (warp == 0) {\n    // The code-length tree"),
+    ("    build_lengths(team, freq, l, kCl, kClCap, k_tab, s_key);\n",
+     "    build_lengths(team, freq, l, kCl, kClCap, k_tab, s_key);\n" + _clock(_AT["cl_tree"])),
+    ("      s_cl_code[lane] = code;\n    }\n",
+     "      s_cl_code[lane] = code;\n    }\n" + _clock(_AT["cl_codes"])),
+    ("      header_total_out[b] = use_dyn ? 17 + kCl * 3 + hb : 3;\n    }\n",
+     "      header_total_out[b] = use_dyn ? 17 + kCl * 3 + hb : 3;\n    }\n"
+     + _clock(_AT["choice"])),
+    ("      if (lane < kDist) s_code[kLit + lane] = code;\n    }\n",
+     "      if (lane < kDist) s_code[kLit + lane] = code;\n    }\n"
+     + _clock(_AT["codes"], "tid == 32")),
+    ("  __syncthreads();\n\n  const bool use_dyn = s_use_dyn;\n",
+     "  __syncthreads();\n" + _clock(_AT["codes_synced"], "tid == 0")
+     + "\n  const bool use_dyn = s_use_dyn;\n"),
+    ("    hdr_bits_out[static_cast<long long>(b) * kHdr + i] = bits;\n  }\n}\n",
+     "    hdr_bits_out[static_cast<long long>(b) * kHdr + i] = bits;\n  }\n  __syncthreads();\n"
+     + _clock(_AT["end"], "tid == 0") + "  __syncthreads();\n"
+     f"  if (tid < {P5_CLOCKS}) hdr_vals_out[static_cast<long long>(b) * kHdr + tid] = "
+     "s_clk[tid];\n}\n"),
+)
+
+
+def p5_outputs(B: int, dev) -> list:
+    """P5's eight outputs for B blocks, in its C interface's order."""
+    out = [torch.empty(B, n, dtype=torch.int64, device=dev)
+           for n in (bt.NLIT, bt.NLIT, bt.NDIST, bt.NDIST, bt.NHDR, bt.NHDR)]
+    return out + [torch.empty(B, dtype=torch.int64, device=dev),
+                  torch.empty(B, dtype=torch.bool, device=dev)]
+
+
+def p5_clock(args) -> dict:
+    """The clocked copy of P5 (``P5_CLOCK_EDITS``) on ``args``: per phase,
+    the median and the largest over the blocks of the cycles from the
+    previous phase's end (the lit/len and distance trees and the code
+    stage's warps run side by side, each from the same start), and the
+    lit/len tree's loops' cycles and steps."""
+    fn = ctypes.CDLL(str(edited_library("build_tables.cu", P5_CLOCK_EDITS,
+                                        "compu_p5_clocked"))).compu_build_tables
+    fn.argtypes, fn.restype = list(_build._SIGNATURES["compu_build_tables"]), ctypes.c_int
+    dev = args[0].device
+    out = p5_outputs(args[0].shape[0], dev)
+    tabs = [bt.tables.on_device(n, dev) for n in ("start_thresholds", "cl_start_len", "flat_k")]
+    for _ in range(2):  # a warm launch, then the one read
+        if fn(*(t.data_ptr() for t in (*args, *tabs, *out)), args[0].shape[0],
+              _build.stream_handle(args[0])):
+            raise RuntimeError("the clocked P5 failed to launch")
+    torch.cuda.synchronize()
+    clk = out[4][:, :P5_CLOCKS].double()
+    res = {}
+    for name, prev in P5_AFTER.items():
+        if prev is not None:
+            d = clk[:, _AT[name]] - clk[:, _AT[prev]]
+            res[name] = {"median": float(d.median()), "max": float(d.max())}
+    whole = clk[:, _AT["end"]] - clk[:, _AT["start"]]
+    res["whole"] = {"median": float(whole.median()), "max": float(whole.max())}
+    for name, k in _STEP.items():
+        res[name] = {"median": float(clk[:, k].median()), "max": float(clk[:, k].max())}
+    return res
+
+
+def p5_inputs(corpus: bytes) -> dict:
+    """P5's inputs as ``chip_smoke.py`` holds it: the histograms of
+    gzip_lex's first 16-block group (its matcher at the level-6 ladder),
+    of mesh_encode's 64-block batch (``encode_blocks_dyn``'s defaults at
+    depth 8) and the synthetic sweep, each (lit, dist, xl, xd, ns)."""
+    blocks, lens = cs.split_blocks(corpus)
+    out = {}
+    for shape, cut, kw in (("gzip_lex", slice(0, 16), cs.LADDER),
+                           ("mesh_encode", slice(None), {"depth": 8})):
+        b = torch.from_numpy(blocks[cut]).cuda()
+        ns = torch.from_numpy(lens[cut]).cuda().to(torch.int64)
+        hists = cs._tok_hist_from_match(b, ns, *cs.match_and_parse_batch(b, ns, **kw))
+        out[shape] = hists[1:] + (ns,)
+    out["synthetic"] = cs.synthetic_tables_inputs(torch.device("cuda"))
+    return out
+
+
+def build_tables_main(parent: pathlib.Path) -> None:
+    lib_parent = _build.build([parent / "compu_tpu_torch" / "csrc" / "build_tables.cu"],
+                              "libcompu_parent_p5")
+    launch = ctypes.CDLL(str(lib_parent)).compu_build_tables
+    launch.argtypes, launch.restype = [_P] * 17 + [_LL, _P], ctypes.c_int
+    dev = torch.device("cuda")
+    tabs = [bt.tables.on_device(n, dev) for n in ("cl_start_len", "flat_k")]
+
+    def parent_launch(lf, df, ll, dl, xl, xd, ns):
+        """The earlier design's launch alone, on seeded histograms and start
+        lengths."""
+        B = lf.shape[0]
+        out = p5_outputs(B, dev)
+        if launch(*(t.data_ptr() for t in (lf, df, ll, dl, xl, xd, ns, *tabs, *out)), B,
+                  _build.stream_handle(lf)):
+            raise RuntimeError("the parent's build_tables failed to launch")
+        return tuple(out)
+
+    def parent_prepare(lf, df, xl, xd, ns):
+        """The earlier design's wrapper: the plain version's seeding and
+        start lengths, then its launch."""
+        lf, df = bt.seed_histograms(lf, df)
+        return (lf, df, bt.start_lengths(lf, bt.CAPBITS), bt.start_lengths(df, bt.CAPBITS),
+                xl, xd, ns)
+
+    def parent_wrapper(*args):
+        return parent_launch(*parent_prepare(*args))
+
+    def tree_wrapper(*args):
+        return tuple(bt.build_tables_cuda(*args).values())
+
+    def tree_launch(*args):
+        return tuple(bt.launch_p5(*args).values())
+
+    with open(_build.BUILD_DIR / "ab_build_tables_sass.txt", "w") as fh:
+        for label, lib in (("parent", lib_parent), ("tree", _build.build())):
+            # The kernel's backward branches also span whole phases: those
+            # stretches are no step's loop.
+            dump_loops(label, lib, "build_tables_kernel", fh, reads="SHFL.IDX", longest=1000)
+    chase = cs.smem_round_trip()
+    ghz = chase["cycles"] / chase["ns"]
+    warp_step = cs.redux_round_trip()
+    wide_step = cs._chase("compu_block_redux_chase", 1 << 18)
+    cs.log("redux four-warp step " + json.dumps(wide_step))
+    res = []
+    for shape, args in p5_inputs(cs.build_corpus(cs.CORPUS_BYTES)).items():
+        want = tuple(bt.build_tables_torch(*args).values())
+        prepared = parent_prepare(*args)
+        for label, fn, a in (("parent", parent_launch, prepared), ("tree", tree_wrapper, args),
+                             ("tree launch", tree_launch, args)):
+            got = fn(*a)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"build_tables ({shape}): the {label} design differs from "
+                                     f"the plain version")
+        nbytes, steps, chain = cs.build_tables_work(args, {}, want)
+        times = collections.defaultdict(list)
+        order = [("parent_wrapper", parent_wrapper, args),
+                 ("parent_launch", parent_launch, prepared),
+                 ("tree_wrapper", tree_wrapper, args), ("tree_launch", tree_launch, args)]
+        for label, fn, a in order + order[::-1]:
+            times[label].append(cs.device_ms(fn, a, {}, k=50))
+        bound = max(nbytes / cs.HBM_BYTES_PER_S * 1e3, chain["ops_ms"])
+        entry = {"name": "build_tables", "shape": shape, "blocks": int(args[0].shape[0]),
+                 "clock_cycles": p5_clock(args),
+                 "bytes": nbytes, "chain_steps": steps, "steps_max": chain["steps_max"],
+                 "flat_tree_rows": chain["flat_tree_rows"], "bound_ms": bound,
+                 **{f"{k}_ms": v for k, v in times.items()},
+                 **{f"{k}_share_of_bound": [bound / t for t in v] for k, v in times.items()},
+                 **{f"{k}_cycles_per_step": [t * 1e6 * ghz / steps for t in v]
+                    for k, v in times.items()}}
+        cs.log("ab " + json.dumps(entry))
+        res.append(entry)
+    print(json.dumps({"sm_ghz": ghz, "smem_read": chase, "warp_reduction": warp_step,
+                      "four_warp_step": wide_step, "kernels": res}))
+
+
 MODES = {"chains": chains_main, "parse_cover": parse_cover_main,
-         "inflate_scan": inflate_scan_main, "inflate_spec": inflate_spec_main}
+         "inflate_scan": inflate_scan_main, "inflate_spec": inflate_spec_main,
+         "build_tables": build_tables_main}
 
 
 def main() -> None:

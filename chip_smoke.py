@@ -214,7 +214,8 @@ the ten functions. P5 (the table stage) is held at the first group of
 gzip_lex and of each hash path, at mesh_encode's 64-block batch, and on
 a synthetic sweep of 64 rows with flat-tree rows and inexact flat keys
 (``other_shapes``); its entries also carry ``launch_only_ms`` (the
-launch without the wrapper's seeding and start lengths in torch), the
+launch without the wrapper's argument checks: the wrapper makes no torch
+op, the kernel seeds the histograms and finds the start lengths), the
 steps its trees take and the rows that take the flat tree; its bound is
 its slowest block's chain of tree steps, each one dependent warp-wide
 reduction, measured in this run (``smoke_csrc/redux_chase.cu``, the
@@ -474,7 +475,8 @@ LCP_FAR_COST: dict = {}
 MATCH_COST: dict = {}
 # This script's own CUDA sources, built beside the package's kernels: the
 # shared-memory chase that measures P1-P4's bound unit, the warp-reduction
-# chase that measures P5's, and B2's copy floor (read by ab_chains.py).
+# chase that measures P5's, and B2's copy floor and the four-warp
+# reduction chase (read by ab_chains.py).
 SMOKE_SOURCES = sorted((pathlib.Path(__file__).resolve().parent / "smoke_csrc").glob("*.cu"))
 
 
@@ -607,20 +609,19 @@ def sass_loops(lib_path, symbol: str) -> list[list[tuple]]:
 
 
 def sass_step_loop(lib_path, symbol: str, load: str, loads_per_step: int,
-                   steps: int, pick=min) -> dict:
+                   steps: int) -> dict:
     """One step of a chain kernel's main loop in the built library's SASS:
     the loop of kernel ``symbol`` that holds ``loads_per_step * steps``
     instructions of opcode ``load`` (the table reads), i.e. ``steps`` steps
-    an iteration (of several, by ``pick``: the smallest of those that read
-    no device memory, P2's path over staged rows; P5 takes the largest, its
-    lit/len tree's step); its instructions by pipe divided by ``steps``,
-    and the iteration's whole count."""
+    an iteration (of several, the smallest of those that read no device
+    memory: P2's path over staged rows); its instructions by pipe divided
+    by ``steps``, and the iteration's whole count."""
     want = loads_per_step * steps
     fits = [body for body in sass_loops(lib_path, symbol)
             if sum(op == load for _, op, _ in body) == want]
     if not fits:
         raise AssertionError(f"no loop of {symbol} with {want} {load} in {lib_path.name}")
-    body = pick(fits, key=lambda b: (any(op.startswith("LDG") for _, op, _ in b), len(b)))
+    body = min(fits, key=lambda b: (any(op.startswith("LDG") for _, op, _ in b), len(b)))
     counts = collections.Counter(_pipe(op) for _, op, _ in body)
     return {"steps_per_iteration": steps, "iteration_instructions": len(body),
             **{k: counts[k] / steps for k in ("alu", "fma", "xu", "mem")}}
@@ -895,13 +896,9 @@ def synthetic_tables_inputs(device) -> tuple:
 
 
 def p5_launch_only_ms(args) -> float:
-    """P5's launch alone (``launch_p5``) on the seeded histograms and start
-    lengths the wrapper would hand it, timed as :func:`device_ms` times."""
-    lf, df, xl, xd, ns = args
-    lf, df = bt.seed_histograms(lf, df)
-    prepared = (lf, df, bt.start_lengths(lf, bt.CAPBITS), bt.start_lengths(df, bt.CAPBITS),
-                xl, xd, ns)
-    return device_ms(bt.launch_p5, prepared, {}, k=50)
+    """P5's launch alone (``launch_p5``, without the wrapper's argument
+    checks) on the path's raw histograms, timed as :func:`device_ms` times."""
+    return device_ms(bt.launch_p5, args, {}, k=50)
 
 
 def tables_tuple(fn):
@@ -1226,10 +1223,10 @@ def _lanes_smem(args, kw) -> int:
 # The chain kernels: per kernel, the SASS symbol of its kernel, the opcode
 # of its table reads and their number a step, its steps an iteration of
 # the main loop and the dynamic shared memory a block asks for, both for
-# the inputs (args, kw), and optionally how to pick among the loops that
-# fit (sass_step_loop). P1 walks 8 steps an iteration; P2 64 // max_bits
-# (16 at most; its max_bits is args[5]); P3 one iteration of its loop
-# for lanes whose reads all lie in the staged span: the three shared reads
+# the inputs (args, kw) (sass_step_loop). P1 walks 8 steps an iteration;
+# P2 64 // max_bits (16 at most; its max_bits is args[5]); P3 one
+# iteration of its loop for lanes whose reads all lie in the staged span:
+# the three shared reads
 # of its 64-bit window and its two table reads (a match, or up to two
 # literals), at the 12-bit tables the path gives it, which sit in dynamic
 # shared memory with the staged rows and span.
@@ -1242,11 +1239,12 @@ CHAIN_KERNELS = {
     "inflate_scan": ("inflate_scan_kernelILi12EE", "LDS", 5, lambda args, kw: 1,
                      lambda args, kw: _build.lib().compu_inflate_scan_smem(
                          args[3].shape[1].bit_length() - 1, kw["k"], kw["rsteps"])),
-    # P5: a tree step ends in one shuffle (the changed symbol's Kraft
-    # difference from its lane); the longest such loop, the lit/len tree's
-    # (9 symbols a lane). Static shared memory only.
-    "build_tables": ("build_tables_kernel", "SHFL.IDX", 1, lambda args, kw: 1,
-                     lambda args, kw: 0, max),
+    # P5: the lit/len tree's exact-fill step, on its three warps, reads
+    # the warps' bests back in one 16-byte shared read (and one of 8); no
+    # other loop of the kernel has a 16-byte one. Static shared memory
+    # only.
+    "build_tables": ("build_tables_kernel", "LDS.128", 1, lambda args, kw: 1,
+                     lambda args, kw: 0),
 }
 
 
@@ -1255,10 +1253,10 @@ def chain_report(name: str, res: dict, args, kw) -> dict:
     x the SM clock of this run's shared-memory chase / the longest chain's
     steps), one step of its main loop in the SASS by pipe, and the dynamic
     shared memory it asks for."""
-    symbol, load, loads, steps, smem, *pick = CHAIN_KERNELS[name]
+    symbol, load, loads, steps, smem = CHAIN_KERNELS[name]
     chase = smem_round_trip()
-    per = sass_step_loop(_build.build(), symbol, load, loads, steps(args, kw), *pick)
-    ms = res.get("launch_only_ms", res["ms"])  # P5: its launch without the wrapper's torch ops
+    per = sass_step_loop(_build.build(), symbol, load, loads, steps(args, kw))
+    ms = res.get("launch_only_ms", res["ms"])  # P5: its launch without the wrapper's checks
     out = {"cycles_per_step": ms * 1e6 / res["ops"] * chase["cycles"] / chase["ns"],
            "sass_per_step": per, "dynamic_smem_bytes": smem(args, kw)}
     log(f"sass {name} per step " + json.dumps(per))

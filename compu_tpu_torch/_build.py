@@ -50,7 +50,7 @@ _SIGNATURES = {
     "compu_inflate_scan": (_P, _LL, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "compu_inflate_scan_smem": (_I, _I, _I),
     "compu_inflate_spec": (_P, _LL, _P, _LL, _LL, _P, _P, _P),
-    "compu_build_tables": (_P,) * 17 + (_LL, _P),
+    "compu_build_tables": (_P,) * 16 + (_LL, _P),
 }
 
 

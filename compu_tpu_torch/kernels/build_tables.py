@@ -8,14 +8,14 @@ Port of ``compu_tpu/kernels/deflate_jax_v3.py``'s ``build_lengths``,
 
 ``build_tables`` dispatches by device: kernel P5 (``csrc/build_tables.cu``,
 one launch a batch, one CUDA block a DEFLATE block) for CUDA tensors, the
-plain version ``build_tables_torch`` for CPU tensors. Before the launch the
-wrapper seeds the histograms and computes the lit/len and distance trees'
-start lengths ``ceil(-log2 p)`` with the plain version's own torch ops, so
-every logarithm rounds as the plain version's does on that device; the
-code-length tree's start lengths and the flat tree's depth come from
-tables that the device computes once with the same ops
-(``tables.on_device("cl_start_len")``, ``("flat_k")``). The kernel takes
-no logarithm.
+plain version ``build_tables_torch`` for CPU tensors. The wrapper makes no
+torch op before the launch: the kernel seeds the histograms itself and
+takes no logarithm. Three tables, each computed once a device with the
+plain version's own torch ops so that they round as it does there, stand
+in for its logarithms (``tables.on_device``): the lit/len and distance
+trees' start-length thresholds (``"start_thresholds"``), the code-length
+tree's start lengths (``"cl_start_len"``) and the flat tree's depth
+(``"flat_k"``).
 """
 
 from __future__ import annotations
@@ -52,11 +52,15 @@ def _rev_bits(x: torch.Tensor, bits: torch.Tensor, maxbits: int = 15) -> torch.T
 # Canonical Huffman construction
 # ---------------------------------------------------------------------------
 
+def _exponents(p: torch.Tensor) -> torch.Tensor:
+    """float32 ``ceil(-log2 max(p, 2^-30))``, elementwise."""
+    return torch.ceil(-_log2_f32(torch.clamp(p, min=2.0 ** -30)))
+
+
 def _start_exponents(freq: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     """float32 ``ceil(-log2 max(freq / total, 2^-30))``, elementwise, with
     ``total`` broadcast against ``freq``."""
-    p = freq.to(torch.float32) / torch.clamp(total.to(torch.float32), min=1.0)
-    return torch.ceil(-_log2_f32(torch.clamp(p, min=2.0 ** -30)))
+    return _exponents(freq.to(torch.float32) / torch.clamp(total.to(torch.float32), min=1.0))
 
 
 def start_lengths(freq: torch.Tensor, cap: int) -> torch.Tensor:
@@ -161,7 +165,38 @@ def canonical_codes(lengths: torch.Tensor, maxbits: int = 15) -> torch.Tensor:
     return _rev_bits(codes, torch.clamp(lengths, min=1), maxbits)
 
 
-# The kernel's two tables, each computed once a device with the ops above.
+# The kernel's three tables, each computed once a device with the ops above.
+THRESHOLD_CHUNK = 1 << 22  # floats evaluated at a time by the threshold build
+
+
+def _start_threshold_table(device, exponents=_exponents) -> torch.Tensor:
+    """(CAPBITS - 1,) float32: entry k - 1 holds ``t_k``, the least float32
+    ``p <= 1`` at which ``exponents(p)`` (the plain version's
+    :func:`_exponents`) is at most k, for k = 1..11. Every float32 of
+    ``[2^-12, 1]`` is evaluated, THRESHOLD_CHUNK at a time, on ``device``;
+    below 2^-12 the exponent exceeds 11 whatever the rounding. A used symbol's
+    start length is then ``1 + #{k : p < t_k}``, as kernel P5 takes it.
+    Raises unless the exponents over the range fall as ``p`` rises (a step
+    function that does not increase): else no table reproduces them."""
+    lo, hi = (int(torch.tensor(v, dtype=torch.float32).view(torch.int32))
+              for v in (2.0 ** -12, 1.0))
+    ks = -torch.arange(1, CAPBITS, dtype=torch.float32, device=device)
+    above = torch.zeros(CAPBITS - 1, dtype=torch.int64, device=device)
+    last = None
+    for at in range(lo, hi + 1, THRESHOLD_CHUNK):
+        p = torch.arange(at, min(at + THRESHOLD_CHUNK, hi + 1), dtype=torch.int32,
+                         device=device).view(torch.float32)
+        e = exponents(p)
+        if not bool((e[1:] <= e[:-1]).all()) or (last is not None and bool(e[0] > last)):
+            raise ValueError(f"the start exponents rise with p in [{float(p[0])!r}, "
+                             f"{float(p[-1])!r}]: no threshold table reproduces them")
+        above += torch.searchsorted(-e, ks)  # how many p of the chunk have an exponent > k
+        last = e[-1]
+    if int(above.max()) > hi - lo:
+        raise ValueError("an exponent exceeds its k at p = 1: no threshold table")
+    return (lo + above).to(torch.int32).view(torch.float32)
+
+
 def _cl_start_table(device) -> torch.Tensor:
     """(2, NLENS + 2) int32: row t, column f holds the code-length tree's
     float32 ``ceil(-log2 p)`` of a symbol of frequency f when the tree's
@@ -177,7 +212,8 @@ def _flat_k_table(device) -> torch.Tensor:
     return _flat_depth(torch.arange(NLIT + 1, device=device)).to(torch.int32)
 
 
-tables.BUILT_ON_DEVICE.update(cl_start_len=_cl_start_table, flat_k=_flat_k_table)
+tables.BUILT_ON_DEVICE.update(cl_start_len=_cl_start_table, flat_k=_flat_k_table,
+                              start_thresholds=_start_threshold_table)
 
 
 # ---------------------------------------------------------------------------
@@ -263,9 +299,9 @@ def build_tables_torch(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns) -> d
 
 def build_tables_cuda(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns) -> dict:
     """Kernel P5 (``csrc/build_tables.cu``); the contract of
-    :func:`build_tables_torch`. The histograms are seeded and the lit/len
-    and distance start lengths computed here, in torch, before the one
-    launch (:func:`launch_p5`)."""
+    :func:`build_tables_torch`. The arguments are checked and the outputs
+    allocated; the seeding and the start lengths happen inside the one
+    launch (:func:`launch_p5`), with no torch op before it."""
     from .. import _build
 
     B = lit_freq.shape[0] if lit_freq.dim() else 0
@@ -276,14 +312,13 @@ def build_tables_cuda(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns) -> di
         if tuple(t.shape) != shape or t.device != lit_freq.device:
             raise ValueError(f"{name}: expected shape {shape} on {lit_freq.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
-    lit_freq, dist_freq = seed_histograms(lit_freq, dist_freq)
-    return launch_p5(lit_freq, dist_freq, start_lengths(lit_freq, CAPBITS),
-                     start_lengths(dist_freq, CAPBITS), extra_l_bits, extra_d_bits, ns)
+    return launch_p5(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns)
 
 
-def launch_p5(lit_freq, dist_freq, lit_l, dist_l, extra_l_bits, extra_d_bits, ns) -> dict:
-    """The launch alone, on seeded histograms and their start lengths, all
-    contiguous int64 CUDA tensors of :func:`build_tables_cuda`'s shapes."""
+def launch_p5(lit_freq, dist_freq, extra_l_bits, extra_d_bits, ns) -> dict:
+    """The launch alone, on the raw histograms, all contiguous int64 CUDA
+    tensors of :func:`build_tables_cuda`'s shapes, with the device's three
+    tables (``start_thresholds``, ``cl_start_len``, ``flat_k``)."""
     from .. import _build
 
     B, dev = lit_freq.shape[0], lit_freq.device
@@ -298,8 +333,8 @@ def launch_p5(lit_freq, dist_freq, lit_l, dist_l, extra_l_bits, extra_d_bits, ns
     if B == 0:
         return out
     err = _build.lib().compu_build_tables(
-        lit_freq.data_ptr(), dist_freq.data_ptr(), lit_l.data_ptr(), dist_l.data_ptr(),
-        extra_l_bits.data_ptr(), extra_d_bits.data_ptr(), ns.data_ptr(),
+        lit_freq.data_ptr(), dist_freq.data_ptr(), extra_l_bits.data_ptr(),
+        extra_d_bits.data_ptr(), ns.data_ptr(), on_device("start_thresholds", dev).data_ptr(),
         on_device("cl_start_len", dev).data_ptr(), on_device("flat_k", dev).data_ptr(),
         *(t.data_ptr() for t in out.values()), B, _build.stream_handle(lit_freq))
     _build.check_launch(err, "build_tables")

@@ -260,6 +260,122 @@ def test_start_tables_equal_the_formula(jax_cpu):
     assert np.array_equal(np.asarray(ref).astype(np.int32), k.numpy())
 
 
+def _start_lengths_by_thresholds(freq: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:
+    """Kernel P5's rule in torch: float32 p = freq / max(total, 1), and a
+    used symbol starts at 1 + the count of thresholds above p."""
+    total = freq.sum(-1, keepdim=True)
+    p = freq.to(torch.float32) / torch.clamp(total, min=1).to(torch.float32)
+    count = (p[..., None] < thresholds).sum(-1)
+    return torch.where(freq > 0, 1 + count, 0)
+
+
+def _seeded_trees(device="cpu"):
+    """Every seeded lit/len and distance histogram of the sets and of the
+    2,000 random rows, one (B, A) tensor a tree and set."""
+    arrays = [_stack(fn()) for fn in SETS.values()] + [_random_rows(2000, seed=16)]
+    out = []
+    for lit, dist, *_ in arrays:
+        lf, df = bt.seed_histograms(torch.from_numpy(lit).to(device),
+                                    torch.from_numpy(dist).to(device))
+        out += [lf, df]
+    return out
+
+
+def test_start_thresholds_reproduce_start_lengths():
+    """The thresholds, computed on the CPU over every float32 of [2^-12, 1]
+    with the plain version's ops, give every used symbol of the sets and of
+    the random rows the plain version's start length: the kernel's rule
+    (float32 division and a count of thresholds) equals ``start_lengths``
+    exactly, the clamps included."""
+    t = bt._start_threshold_table(torch.device("cpu"))
+    assert t.shape == (bt.CAPBITS - 1,) and t.dtype == torch.float32
+    assert bool((t[1:] < t[:-1]).all()) and float(t[-1]) >= 2.0 ** -12 and float(t[0]) <= 1.0
+    assert torch.equal(t, bt.tables.on_device("start_thresholds", torch.device("cpu")))
+    lengths = set()
+    for freq in _seeded_trees():
+        want = bt.start_lengths(freq, bt.CAPBITS)
+        assert torch.equal(_start_lengths_by_thresholds(freq, t), want)
+        lengths |= set(want[freq > 0].tolist())
+    assert lengths == set(range(1, bt.CAPBITS + 1))  # every length, both clamps among them
+
+
+def test_midpoint_rule_equals_the_division():
+    """Kernel P5 takes no division: float32 fl(f / T) < t_k exactly when
+    f - m_k * T < 0, or = 0 with the float below t_k even, where m_k is
+    the midpoint of t_k and the float below it (m_k * T is exact in
+    float64). That rule gives every used symbol of the sets and the random
+    rows the same count as float32 division does."""
+    t = bt.tables.on_device("start_thresholds", torch.device("cpu")).numpy()
+    below = t.view(np.uint32) - np.uint32(1)
+    mid = (below.view(np.float32).astype(np.float64) + t.astype(np.float64)) * 0.5
+    even = (below & 1) == 0
+    for freq in _seeded_trees():
+        f = freq.numpy()
+        total = np.maximum(f.sum(-1, keepdims=True), 1).astype(np.float32).astype(np.float64)
+        d = f.astype(np.float32).astype(np.float64)[..., None] - mid * total[..., None]
+        count = ((d < 0) | ((d == 0) & even)).sum(-1)
+        p = f.astype(np.float32) / total.astype(np.float32)
+        assert np.array_equal(np.where(f > 0, 1 + count, 0),
+                              np.where(f > 0, 1 + (p[..., None] < t).sum(-1), 0))
+
+
+def test_start_threshold_check_raises_on_a_rising_formula():
+    """A formula whose exponent rises with p somewhere in [2^-12, 1] has
+    no threshold table: the build raises and keeps no fallback."""
+    def rising(p):
+        return torch.ceil(-bt._log2_f32(p)) + (torch.sin(p * 5000.0) > 0).to(torch.float32)
+
+    with pytest.raises(ValueError, match="rise with p"):
+        bt._start_threshold_table(torch.device("cpu"), exponents=rising)
+
+
+def test_exponent_shift_key_equals_the_division():
+    """The fill key: float32 freq with its exponent lowered by 12 - l is,
+    bit for bit, float32 freq / 2^(12 - l), for every l in 1..12, each
+    frequency 1..2^20, and samples up to 2^31 (whose floats round)."""
+    rng = np.random.default_rng(31)
+    freq = np.concatenate([np.arange(1, (1 << 20) + 1),
+                           rng.integers(1 << 20, 1 << 31, 1 << 18),
+                           [(1 << 24) + 1, 286 * INEXACT_FREQ, (1 << 31) - 1]])
+    freq_f = freq.astype(np.float32)
+    bits = freq_f.view(np.uint32)
+    for length in range(1, bt.CAPBITS + 1):
+        shift = bt.CAPBITS - length
+        want = (freq_f / np.float32(1 << shift)).view(np.uint32)
+        assert np.array_equal(bits - np.uint32(shift << 23), want), length
+
+
+@pytest.mark.parametrize("cap, nsym", [(bt.CAPBITS, NLIT), (bt.CAPBITS, NDIST), (bt.CLCAP, bt.NCL)])
+def test_lengthening_key_orders_as_the_argmax(cap, nsym):
+    """The lengthening key (cand ? (cap - l + 1) << 9 : 0) | (511 - index):
+    its largest names the plain version's argmax of the units (lowest index
+    first, symbol 0 when no candidate qualifies), and the Kraft sum's
+    change follows from it alone (a used symbol is never of length 0)."""
+    rng = np.random.default_rng(cap * 1000 + nsym)
+    rows = 4000
+    used = rng.random((rows, nsym)) < rng.random((rows, 1))
+    used[:200] = False  # no candidate: all unused ...
+    length = rng.integers(0, cap + 2, (rows, nsym))
+    length[200:400] = np.where(rng.random((200, nsym)) < 0.5, cap, cap + 1)  # ... or all at cap+
+    used[200:400] = True
+    length[400:800] = rng.integers(1, 3, (400, nsym))  # ties among few lengths
+    length = np.where(used, np.maximum(length, 1), length)  # a used symbol starts at 1 or more
+    cand = used & (length > 0) & (length < cap)
+    units = np.where(used & (length > 0), (1 << cap) >> np.minimum(length, cap), 0)
+    want = np.argmax(np.where(cand, units, -1), axis=-1)
+    key = np.where(cand, (cap - length + 1) << 9, 0) | (511 - np.arange(nsym))
+    top = key.max(-1)
+    assert np.array_equal(511 - (top & 511), want)
+    assert not cand[:400].any() and (want[:400] == 0).all()
+    rows_ = np.arange(rows)
+    after = length.copy()
+    after[rows_, want] += 1
+    units_after = np.where(used & (after > 0), (1 << cap) >> np.minimum(after, cap), 0)
+    lw = cap + 1 - (top >> 9)
+    delta = np.where(top >= 512, -(((1 << cap) >> np.clip(lw, 0, cap)) >> 1), 0)
+    assert np.array_equal(units_after.sum(-1) - units.sum(-1), delta)
+
+
 def test_build_tables_dispatch():
     arrays = _torch_inputs(_stack(_edge_rows()))
     out = bt.build_tables(*arrays)
@@ -333,6 +449,13 @@ def test_p5_equals_plain_random_gpu(cuda, B):
 
 @pytest.mark.gpu
 def test_p5_one_launch_a_batch_gpu(cuda):
+    """One P5 launch an encode_blocks_dyn batch, and the whole
+    build_tables_cuda call is that one CUDA kernel under torch.profiler:
+    no torch op runs on the card before it (the tables are built once a
+    device, by the warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     rng = np.random.default_rng(2)
     N = 1 << 15
     blocks = torch.from_numpy(rng.integers(0, 8, (4, N), dtype=np.uint8)).to(cuda)
@@ -343,3 +466,25 @@ def test_p5_one_launch_a_batch_gpu(cuda):
     encode_blocks_dyn(blocks, lens)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["build_tables"] == 1
+    inputs = _torch_inputs(_stack(_real_rows()), cuda)
+    bt.build_tables_cuda(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bt.build_tables_cuda(*inputs)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not (getattr(e, "is_user_annotation", False)
+                        or getattr(e, "activity_type", None) == "gpu_user_annotation")]
+    assert len(on_card) == 1 and "build_tables_kernel" in on_card[0], on_card
+
+
+@pytest.mark.gpu
+def test_start_thresholds_on_the_card_gpu(cuda):
+    """The card's thresholds pass the build's check there, and with the
+    kernel's rule they give every used symbol of the sets and the random
+    rows the plain version's start length on the card."""
+    t = bt._start_threshold_table(cuda)
+    assert torch.equal(t, bt.tables.on_device("start_thresholds", cuda))
+    for freq in _seeded_trees(cuda):
+        assert torch.equal(_start_lengths_by_thresholds(freq, t),
+                           bt.start_lengths(freq, bt.CAPBITS))

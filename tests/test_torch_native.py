@@ -58,6 +58,31 @@ def corpus(n: int, seed: int) -> np.ndarray:
 
 
 # -- the build ----------------------------------------------------------------
+def mapped_path(line: str) -> str:
+    """The pathname of one ``/proc/<pid>/maps`` line: the text from its
+    sixth field on (a path may hold spaces), less the ` (deleted)` that the
+    kernel appends when the mapped file has been replaced or removed."""
+    fields = line.split(maxsplit=5)
+    return fields[5].removesuffix(" (deleted)") if len(fields) == 6 else ""
+
+
+@pytest.mark.parametrize("line, path", [
+    ("7f1c2a000000-7f1c2a010000 r-xp 00000000 08:01 1234  /a/b/libcompu_runtime_0f.so",
+     "/a/b/libcompu_runtime_0f.so"),
+    ("7f1c2a000000-7f1c2a010000 r--p 00010000 08:01 1234  /a/csrc/libcompu_runtime.so (deleted)",
+     "/a/csrc/libcompu_runtime.so"),
+    ("7f1c2a000000-7f1c2a010000 rw-p 00000000 08:01 99 /my dir/x y/libcompu_runtime.so",
+     "/my dir/x y/libcompu_runtime.so"),
+    ("7f1c2a000000-7f1c2a010000 rw-p 00000000 08:01 99 /my dir/libcompu_runtime.so (deleted)",
+     "/my dir/libcompu_runtime.so"),
+    ("7ffd5c1e0000-7ffd5c201000 rw-p 00000000 00:00 0                          [stack]",
+     "[stack]"),
+    ("7f1c2a000000-7f1c2a010000 rw-p 00000000 00:00 0 ", ""),
+])
+def test_mapped_path_reads_the_whole_pathname(line, path):
+    assert mapped_path(line) == path
+
+
 def test_library_builds_from_the_port_into_its_build_dir():
     """Ten sources under the port's runtime/csrc, the library under the
     port's _build with a name that hashes them, loaded from there."""
@@ -71,7 +96,7 @@ def test_library_builds_from_the_port_into_its_build_dir():
     native.lib()
     maps = pathlib.Path("/proc/self/maps")
     if maps.exists():
-        loaded = {line.split()[-1] for line in maps.read_text().splitlines()
+        loaded = {mapped_path(line) for line in maps.read_text().splitlines()
                   if "libcompu_runtime" in line}
         assert loaded <= {str(path), str(ROOT / "csrc" / "libcompu_runtime.so")}
         assert str(path) in loaded
