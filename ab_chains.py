@@ -6,6 +6,7 @@
     python3 ab_chains.py inflate_scan PARENT_DIR  # P3; PARENT_DIR: commit 21570d8
     python3 ab_chains.py inflate_spec PARENT_DIR  # P4; PARENT_DIR: commit bac9186
     python3 ab_chains.py build_tables PARENT_DIR  # P5; PARENT_DIR: commit ecc7b5f
+    python3 ab_chains.py inflate_resolve PARENT_DIR  # P7 and P6; PARENT_DIR: commit 6992a97
 
 ``PARENT_DIR`` holds a checkout of the commit named (``git archive``
 unpacked). The earlier kernel is built from it into a library of its own
@@ -91,6 +92,26 @@ reduction, a word a warp through shared memory, one barrier), the floor
 of the wider design that the kernel's header weighs. Both kernels' loops
 that hold a shuffle (the fill steps) go to ``ab_build_tables_sass.txt``.
 
+``inflate_resolve``: the expansion and the resolution of both decodes
+were plain PyTorch in 6992a97 (``kernels/inflate.py::_expand`` and
+``_resolve``, int64 roots, the unresolved count read on the host each
+round; ``kernels/inflate_spec.py::resolve_foreign``, every four rounds).
+That commit's package is imported from PARENT_DIR under another name
+(``parent_compu_tpu_torch``: the package's imports are relative) and its
+stages run on the card beside this tree's P7 and P6. The inputs are
+``chip_smoke.py``'s: gzip_decode's first batch (the gzip_lex stream of the
+16 MB corpus, encoded on the card, 16 blocks of 256 KiB: P3's records at
+(6, 26), the blocks' lengths and the scan's flag) and gzip_foreign_decode's
+stream-global token list (stdlib zlib's level-6 gzip stream of the
+corpus). Both designs must give the same bytes and ``ok``; then each is
+timed in turns, parent, this tree, this tree, parent, on the host clock
+around a synchronised call (median of 5 calls a turn; the parent's stages
+read counts on the host, so their events would time the host), and this
+tree's two kernels alone with ``chip_smoke.device_ms``, beside their
+bounds (``chip_smoke.expand_work``, ``resolve_work``). One call of each
+design runs under torch.profiler (``chip_smoke.device_profile``: its
+kernels, copies, kernel ms and idle share).
+
 The last line is one JSON object with the times.
 """
 
@@ -98,9 +119,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import importlib
+import importlib.util
 import json
 import pathlib
+import statistics
 import sys
+import time
 
 import numpy as np
 import torch
@@ -109,6 +134,7 @@ import chip_smoke as cs
 from compu_tpu_torch import _build
 from compu_tpu_torch.kernels import (
     build_tables as bt,
+    inflate,
     inflate_lut,
     inflate_scan,
     inflate_spec,
@@ -753,9 +779,105 @@ def build_tables_main(parent: pathlib.Path) -> None:
                       "four_warp_step": wide_step, "kernels": res}))
 
 
+def parent_package(parent: pathlib.Path, name: str = "parent_compu_tpu_torch"):
+    """The package of the checkout in ``parent``, imported as ``name``."""
+    init = parent / "compu_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(name, init,
+                                                  submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_ms(fn, args, reps: int = 5) -> float:
+    """Median ms of ``reps`` calls of ``fn``, each synchronised, after a warm one."""
+    fn(*args)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def resolution_inputs(corpus: bytes) -> dict:
+    """gzip_decode's first batch and gzip_foreign_decode's token list, as
+    ``chip_smoke.py`` records them: {path: {kernel: (args, kw)}}."""
+    enc, _ = cs.make_encoder("gzip_lex")
+    stream, index = enc.encode(corpus)
+    with cs.recorded_resolution() as gz:
+        if cs.BlockParallelDecoder(block_size=cs.BLOCK).decode(stream, index) != corpus:
+            raise AssertionError("the decode of the gzip_lex stream differs from the corpus")
+    with cs.recorded_resolution() as foreign:
+        res, out = cs.foreign_decode(cs.gzip_stream(corpus), len(corpus))
+        if out != corpus:
+            raise AssertionError(f"the foreign decode differs from the corpus: {res}")
+    return {"gzip_decode": gz, "gzip_foreign_decode": foreign}
+
+
+def inflate_resolve_main(parent: pathlib.Path) -> None:
+    pkg = parent_package(parent)
+    p_inflate = importlib.import_module(f"{pkg.__name__}.kernels.inflate")
+    p_spec = importlib.import_module(f"{pkg.__name__}.kernels.inflate_spec")
+    if p_inflate.__file__ == inflate.__file__:
+        raise AssertionError("the parent's package is this tree's")
+    recorded = resolution_inputs(cs.build_corpus(cs.CORPUS_BYTES))
+    res = []
+    for path, kept in recorded.items():
+        (ex_args, ex_kw), (rs_args, rs_kw) = kept["inflate_expand"], kept["inflate_resolve"]
+        if path == "gzip_decode":
+            rec = ex_args[0]
+            ns, ok = rs_args[1], rs_args[2]
+            args = (rec, ns, ok)
+
+            def parent_fn(rec, ns, ok, p_inflate=p_inflate, kw=ex_kw):
+                return p_inflate._resolve(p_inflate._expand(rec, **kw), ns, ok, N=kw["N"])
+
+            def tree_fn(rec, ns, ok, kw=ex_kw):
+                return inflate._expand_and_resolve(rec, ns, ok, **kw)
+        else:
+            args = ex_args
+
+            def parent_fn(*a, p_spec=p_spec, kw=ex_kw):
+                return p_spec.resolve_foreign(*a, **kw)
+
+            def tree_fn(*a, kw=ex_kw):
+                return inflate_spec.resolve_foreign(*a, **kw)
+        want, got = parent_fn(*args), tree_fn(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{path}: this tree's resolution differs from the parent's")
+        times = collections.defaultdict(list)
+        for label, fn in (("parent", parent_fn), ("tree", tree_fn), ("tree", tree_fn),
+                          ("parent", parent_fn)):
+            times[label].append(host_ms(fn, args))
+        root = cs.expand_twin(*ex_args, **ex_kw)
+        out = cs.resolve_twin(*rs_args, **rs_kw)
+        ex_bytes, _ = cs.expand_work(ex_args, ex_kw, root)
+        rs_bytes, hops, chain = cs.resolve_work(rs_args, rs_kw, out)
+        p7_ms = cs.device_ms(cs.expand_kernel, ex_args, ex_kw, k=50)
+        p6_ms = cs.device_ms(cs.resolve_kernel, rs_args, rs_kw, k=20)
+        p7_bound = ex_bytes / cs.HBM_BYTES_PER_S * 1e3
+        p6_bound = max(rs_bytes / cs.HBM_BYTES_PER_S * 1e3, chain["ops_ms"])
+        entry = {"path": path, "positions": int(root.numel()), "ok": int(got[1][0]),
+                 "parent_ms": times["parent"], "tree_ms": times["tree"],
+                 "p7_ms": p7_ms, "p7_bound_ms": p7_bound, "p7_share_of_bound": p7_bound / p7_ms,
+                 "p6_ms": p6_ms, "p6_bound_ms": p6_bound, "p6_share_of_bound": p6_bound / p6_ms,
+                 "p6_rounds": chain["rounds"], "longest_chain": chain["longest_chain"],
+                 "p6_chain_hops": hops, "l2_load_ns": chain["ns_per_op"],
+                 "parent_profiled": cs.device_profile(lambda: parent_fn(*args)),
+                 "tree_profiled": cs.device_profile(lambda: tree_fn(*args))}
+        cs.log("ab " + json.dumps(entry))
+        res.append(entry)
+    print(json.dumps({"l2_load": cs.l2_round_trip(), "kernels": res}))
+
+
 MODES = {"chains": chains_main, "parse_cover": parse_cover_main,
          "inflate_scan": inflate_scan_main, "inflate_spec": inflate_spec_main,
-         "build_tables": build_tables_main}
+         "build_tables": build_tables_main, "inflate_resolve": inflate_resolve_main}
 
 
 def main() -> None:

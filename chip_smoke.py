@@ -16,8 +16,10 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   step;
 * **gzip_decode**: that stream read back with its index through
   ``BlockParallelDecoder()``: 4 batches of 16 blocks, each one launch of
-  the segment token scan (P3, ``csrc/inflate_scan.cu``), the expansion
-  and the pointer doubling in PyTorch, stored blocks copied on the host;
+  the segment token scan (P3, ``csrc/inflate_scan.cu``), one of the
+  expansion (P7) and one of the pointer doubling (P6, both
+  ``csrc/inflate_resolve.cu``, no host read between them and the fetch),
+  stored blocks copied on the host;
 * **gzip_foreign_decode**: the corpus compressed by stdlib ``zlib`` (level
   6, gzip framing: no index) and decoded through
   ``decoder.Interface.zlib_device(ZlibMode.Auto)``: each deflate block's
@@ -25,8 +27,8 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   canonical walk of longer codes) built in numpy and uploaded once, then
   one launch of the speculative 48-phase chunk scan (P4,
   ``csrc/inflate_spec.cu``) a wave of 256 chunks of 512 bits, the true
-  path walked on the host, and the stream-global expansion and pointer
-  doubling in PyTorch;
+  path walked on the host, and the stream-global expansion (P7) and
+  pointer doubling (P6), one launch each;
 * **zlib_hash**: the hash matcher (wcap 32, the encode's default, depth 16)
   in zlib mode, through ``_encode_blocks_batched`` and
   ``BlockParallelEncoder(mode=Zlib)``;
@@ -87,7 +89,7 @@ blocks of 256 KiB, in 4 groups of 16, for the DEFLATE paths):
   native decoder;
 * **gzip_v1**: the v1 block step, ``make_block_encode_fn(kernel="v1")``
   (plain PyTorch on the card: the chain walk, fixed-Huffman blocks, the
-  lane crc; none of the ten kernels, checked) over the 64 blocks through
+  lane crc; none of the twelve kernels, checked) over the 64 blocks through
   ``BlockParallelEncoder``: stdlib zlib decodes it, it is the CPU's
   stream (``V1_STREAM``: its length and sha256), one step over the
   first 16 blocks launches CUDA kernels under torch.profiler (counted),
@@ -210,7 +212,16 @@ JSON object. Each kernel entry carries ``ms``, ``plain_ms``, ``bound_ms``
 ``share_of_bound`` (bound_ms / ms), ``launches`` (on its path's run) and
 ``launches_per_encode`` (per decode for P2, P3 and P4), and
 ``library_ms`` null with the reason: no one PyTorch call computes any of
-the ten functions. P5 (the table stage) is held at the first group of
+the twelve functions. P7 and P6 (the expansion and the pointer doubling
+of both decodes) are held at gzip_decode's, gzip_fixed_v2_decode's and
+gzip_foreign_decode's first recorded calls (``other_paths``), at
+gzip_decode's batch with P3's 15-bit shape and at the batch of its stream
+with a byte flipped (``other_shapes``; the resolution must not be ok
+there); P6's bound is the larger of its bytes and ceil(log2(longest chain
++ 1)) dependent L2 loads, measured in this run (``smoke_csrc/
+l2_chase.cu``, the ``l2`` line), the longest chain counted by single
+hops; its entries carry the rounds it ran (its device counters), and each
+decode path's result the rounds of one decode. P5 (the table stage) is held at the first group of
 gzip_lex and of each hash path, at mesh_encode's 64-block batch, and on
 a synthetic sweep of 64 rows with flat-tree rows and inexact flat keys
 (``other_shapes``); its entries also carry ``launch_only_ms`` (the
@@ -295,7 +306,7 @@ from compu_tpu_torch.formats.zstd.options import ZstdDecodeOptions, ZstdOptions
 from compu_tpu_torch.kernels import build_tables as bt
 from compu_tpu_torch.kernels import deflate_v2, deflate_v3, inflate_dyn, inflate_lut, u32
 from compu_tpu_torch.kernels import inflate as inflate_mod
-from compu_tpu_torch.kernels import inflate_spec, zstd_lit_decode, zstd_seq
+from compu_tpu_torch.kernels import inflate_resolve, inflate_spec, zstd_lit_decode, zstd_seq
 from compu_tpu_torch.kernels.adler_tiles import (
     adler32_device,
     adler32_partials_cuda,
@@ -411,18 +422,18 @@ PATHS = {
     "adler_device": ("adler_tiles",),
     "zstd_device": ("lcp_candidates", "parse_cover", "fse_seq_scan"),
     "zstd_decode": ("huf_decode_lanes",),
-    "gzip_decode": ("inflate_scan",),
-    "gzip_foreign_decode": ("inflate_spec",),
+    "gzip_decode": ("inflate_scan", "inflate_expand", "inflate_resolve"),
+    "gzip_foreign_decode": ("inflate_spec", "inflate_expand", "inflate_resolve"),
     "brotli_device": ("lcp_candidates", "parse_cover"),
     "gzip_fixed_v2": ("lcp_candidates", "parse_cover", "emit_pack"),
-    "gzip_fixed_v2_decode": ("inflate_scan",),
+    "gzip_fixed_v2_decode": ("inflate_scan", "inflate_expand", "inflate_resolve"),
     "mesh_encode": ("lcp_candidates", "parse_cover", "emit_pack", "build_tables"),
     # The host backends, routes and engines: they launch no kernel
     # (checked: every count 0).
     **{p: () for p in ("zlib_host", "zlib_native", "zstd_native", "brotli_native",
                        "gzip_decode_host", "native_twins", "zstd_host", "zstd_host_l19",
                        "brotli_host", "zlib_host_parallel", "zstd_parallel")},
-    # The v1 step: plain PyTorch on the card, none of the ten kernels
+    # The v1 step: plain PyTorch on the card, none of the twelve kernels
     # (checked); its CUDA kernels are counted under torch.profiler.
     "gzip_v1": (),
 }
@@ -458,7 +469,7 @@ TWIN_BYTES = 1 << 20
 
 # The card's rates the bounds are taken against: the H100 SXM's device
 # memory rate (NVIDIA's data sheet), and its INT32 issue rate, 64 INT32
-# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All ten kernels do
+# lanes per SM x 132 SMs x the 1.98 GHz boost clock. All twelve kernels do
 # integer work outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -824,6 +835,95 @@ def redux_round_trip(steps: int = 1 << 20) -> dict:
     return res
 
 
+@functools.lru_cache(maxsize=1)
+def l2_round_trip(steps: int = 1 << 18) -> dict:
+    """One dependent global load served by the L2 on this card: one thread
+    chases ``i = ring[i]`` through a 16 MiB ring ``steps`` times, each load
+    ``ld.global.cg`` (``smoke_csrc/l2_chase.cu``), per load."""
+    res = _chase("compu_l2_chase", steps)
+    log("l2 dependent L2 load " + json.dumps(res))
+    return res
+
+
+def expand_kernel(*args, **kw):
+    """P7: its foreign entry for a token list (``total_out``), else its
+    indexed entry for a scan's records."""
+    if "total_out" in kw:
+        return inflate_resolve.expand_foreign_cuda(*args, **kw)
+    return inflate_resolve.expand_indexed_cuda(*args, **kw)
+
+
+def expand_twin(*args, **kw):
+    if "total_out" in kw:
+        return inflate_resolve.expand_foreign_torch(*args, **kw)
+    return inflate_resolve.expand_indexed_torch(*args, **kw)
+
+
+def resolve_kernel(*args, **kw):
+    """P6: its indexed resolution for (root, ns, ok), else the foreign one."""
+    if len(args) == 3:
+        return inflate_resolve.resolve_indexed_cuda(*args, **kw)
+    return inflate_resolve.resolve_foreign_roots_cuda(*args, **kw)
+
+
+def resolve_twin(*args, **kw):
+    if len(args) == 3:
+        return inflate_resolve.resolve_indexed_torch(*args, **kw)
+    return inflate_resolve.resolve_foreign_roots_torch(*args, **kw)
+
+
+def expand_work(args, kw, outs):
+    """P7's bytes: the records (indexed) or the token fields it reads and
+    the stored bytes and mask (foreign) in, the int32 roots out. Ops: 2 a
+    record slot (its start, the test), 3 a valid record (the flat start,
+    the atomic max) and 16 a position (the scan's max, the record's
+    fields, the source and its floor mod, the clamp); foreign 12 a
+    position."""
+    if "total_out" in kw:
+        return _nbytes(*args[1:], outs), 12 * outs.numel()
+    rec = args[0]
+    valid = int(((rec & 0x1FF) < NO_TOKEN).sum())
+    return _nbytes(rec, outs), 2 * rec.numel() + 3 * valid + 16 * outs.numel()
+
+
+def longest_chain(root: torch.Tensor, valid, cap: int = 4096) -> int:
+    """Single hops until no valid position's root points at another
+    position: the longest chain of the map (``cap`` where chains loop)."""
+    root = root.to(torch.int64)
+    r, hops = root, 0
+    while hops < cap and bool(((r >= 0) & valid).any()):
+        r = torch.where(r >= 0, root[torch.clamp(r, min=0)], r)
+        hops += 1
+    return hops
+
+
+def resolve_work(args, kw, outs):
+    """P6's bound: the larger of its bytes (the roots in, the bytes out;
+    ``ns`` and the flags) and its chain, ceil(log2(longest chain + 1))
+    dependent L2 loads (a round of doubling at most squares every
+    position's reach), each measured in this run (``l2_round_trip``). The
+    longest chain is counted by single hops over the valid positions."""
+    root = args[0]
+    NT = root.shape[0]
+    if len(args) == 3:
+        ns, N = args[1], kw["N"]
+        gp = torch.arange(NT, device=root.device)
+        valid = (gp % N) < ns.to(torch.int64)[gp // N]
+    else:
+        valid = torch.ones(NT, dtype=torch.bool, device=root.device)
+    longest = longest_chain(root, valid)
+    hops = math.ceil(math.log2(longest + 1))
+    l2 = l2_round_trip()
+    nbytes = _nbytes(*args, outs[0], outs[1])
+    return nbytes, hops, {
+        "ops_ms": hops * l2["ns"] * 1e-6, "ns_per_op": l2["ns"], "longest_chain": longest,
+        "rounds": outs[2].tolist(),
+        "bound_note": f"ceil(log2({longest} + 1)) = {hops} dependent L2 loads (the longest "
+                      f"chain, {longest} single hops), {l2['cycles']:.2f} cycles "
+                      f"({l2['ns']:.3f} ns) each, measured in this run (smoke_csrc/l2_chase.cu); "
+                      f"by bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms"}
+
+
 def build_tables_work(args, kw, outs):
     """P5's chain: per block, the steps of the lit/len and of the distance
     tree that change a length (the two run side by side, so the longer
@@ -955,6 +1055,8 @@ def match_phase_b(args, kw) -> dict:
 
 
 NO_LIBRARY = "no one PyTorch call computes this function"
+# The paths whose decodes run P7 and P6, in the order of their entries.
+RESOLVE_PATHS = ("gzip_decode", "gzip_fixed_v2_decode", "gzip_foreign_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1034,6 +1136,20 @@ KERNELS = {
                            replaces_note="build_lengths' jax.lax.fori_loops (deflate_jax_v3.py:119"
                                          ", :139) and canonical_codes' jax.lax.scan (:170) under "
                                          "jax.vmap(_build_tables) (:640), not a TPU kernel"),
+    "inflate_expand": Kernel(expand_kernel, expand_twin, "compu_tpu_torch/csrc/inflate_resolve.cu",
+                             "compu_tpu/kernels/inflate_jax.py:216", RESOLVE_PATHS, expand_work,
+                             replaces_note="jax.lax.while_loops, not TPU kernels: the expansion "
+                                           "before them, _expand_and_resolve's slot scatter, "
+                                           "running max, record gather and sources "
+                                           "(inflate_jax.py:210, :216-261), and resolve_foreign's "
+                                           "(inflate_spec.py:184, :196-214)"),
+    "inflate_resolve": Kernel(resolve_kernel, resolve_twin,
+                              "compu_tpu_torch/csrc/inflate_resolve.cu",
+                              "compu_tpu/kernels/inflate_jax.py:291", RESOLVE_PATHS, resolve_work,
+                              replaces_note="jax.lax.while_loops, not TPU kernels: "
+                                            "_expand_and_resolve's over the whole map "
+                                            "(inflate_jax.py:291) and over the compacted set "
+                                            "(:317), and resolve_foreign's (inflate_spec.py:231)"),
 }
 # A twin whose call for the equality check takes this long or more, and a
 # chain kernel's twin (P1-P5's: Python loops of tiny launches a step), is
@@ -1176,7 +1292,7 @@ def as_tuple(x):
 
 def hold_to_twin(name: str, path: str, spec: Kernel, args, kw) -> dict:
     """One kernel against its plain twin on one path's inputs, exactly
-    (tolerance 0: all ten are integer functions; only the defined outputs,
+    (tolerance 0: all twelve are integer functions; only the defined outputs,
     ``Kernel.defined``), both timed, and the kernel's bound from the same
     inputs."""
     kernel, twin = spec.kernel, spec.twin
@@ -1410,6 +1526,68 @@ def first_upload():
         scheduler._upload = upload
 
 
+RESOLUTION = ("expand_indexed", "resolve_indexed", "expand_foreign", "resolve_foreign_roots")
+
+
+@contextlib.contextmanager
+def recorded_resolution(keep: int = 0):
+    """While open, the decodes run as usual through ``inflate_resolve``, and
+    the dict it yields gets copies of the arguments of the ``keep``-th call
+    of the expansion (``"inflate_expand"``) and of the resolution
+    (``"inflate_resolve"``), each (args, kw), and every resolution's round
+    counts (``rounds``: (2,) int32 tensors on the device, read after the
+    decode)."""
+    kept = {"rounds": [], "calls": collections.Counter()}
+    saved = {name: getattr(inflate_resolve, name) for name in RESOLUTION}
+
+    def recording(name, fn):
+        kernel = "inflate_expand" if name.startswith("expand") else "inflate_resolve"
+
+        def wrapper(*args, **kw):
+            if kept["calls"][kernel] == keep:
+                kept[kernel] = (tuple(a.clone() for a in args), dict(kw))
+            kept["calls"][kernel] += 1
+            out = fn(*args, **kw)
+            if kernel == "inflate_resolve":
+                kept["rounds"].append(out[2])
+            return out
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(inflate_resolve, name, recording(name, fn))
+    try:
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(inflate_resolve, name, fn)
+
+
+def summed_rounds(kept: dict) -> list:
+    """The recorded resolutions' (whole-map, compacted) rounds, summed."""
+    return torch.stack(kept["rounds"]).sum(0).tolist() if kept["rounds"] else [0, 0]
+
+
+def check_resolution_launches(path: str, launches: dict, per_run: int, runs: int) -> None:
+    """P7 and P6 launched ``per_run`` times a decode."""
+    for name in ("inflate_expand", "inflate_resolve"):
+        if launches[name] != per_run * runs:
+            raise AssertionError(f"{path}: {launches[name]} {name} launches in {runs} decodes, "
+                                 f"not {per_run} a decode")
+
+
+def scan_resolution_inputs(args, kw) -> dict:
+    """P7's and P6's inputs on one of P3's shapes: its records (P3 on the
+    card) for the expansion, the plain expansion's roots, the blocks'
+    lengths and the scan's flag for the resolution."""
+    comps, segs, ns = args[:3]
+    rec, outp, bad = inflate_scan_cuda(*args, **kw)
+    ok = inflate_mod._scan_ok(segs, ns, outp, bad)
+    B, S = segs.shape
+    shape = dict(B=B, N=S * SEG, S=S, R=kw["k"] * kw["rsteps"])
+    root = inflate_resolve.expand_indexed_torch(rec, **shape)
+    return {"inflate_expand": ((rec,), shape), "inflate_resolve": ((root, ns, ok), dict(N=S * SEG))}
+
+
 def gzip_decode_path(corpus: bytes, stream: bytes, index):
     """The gzip_lex stream decoded on the card with its index: one warm
     decode, whose first batch is kept for the kernel report, then three
@@ -1420,12 +1598,13 @@ def gzip_decode_path(corpus: bytes, stream: bytes, index):
     (:func:`p3_inputs`). Returns the measurements and P3's kernel report
     entry."""
     dec = BlockParallelDecoder(block_size=BLOCK)
-    kept = []
+    kept, kept_resolution = [], {}
 
     def decodes():
-        with first_upload() as first:
+        with first_upload() as first, recorded_resolution() as resolution:
             outs = [dec.decode(stream, index)]
         kept.extend(first)
+        kept_resolution.update(resolution)
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1441,16 +1620,21 @@ def gzip_decode_path(corpus: bytes, stream: bytes, index):
     if launches["inflate_scan"] != batches * len(outs):
         raise AssertionError(f"{launches['inflate_scan']} P3 launches in {len(outs)} decodes of "
                              f"{batches} batches")
+    check_resolution_launches("gzip_decode", launches, batches, len(outs))
     if any(st.state != BlockState.Ok for st in dec.block_statuses):
         raise AssertionError("a block of the gzip_lex stream did not decode ok")
     kinds = block_kinds(stream, index)
+    rounds = summed_rounds(kept_resolution)
     log(f"gzip_decode: 4 card decodes give the corpus; blocks {dict(kinds)}; "
-        f"{launches['inflate_scan']} P3 launches ({batches} a decode)")
+        f"{launches['inflate_scan']} P3 launches ({batches} a decode), P7 and P6 "
+        f"{launches['inflate_expand']} and {launches['inflate_resolve']}; the resolution's rounds "
+        f"of one decode (device counters): {rounds[0]} whole-map, {rounds[1]} compacted")
 
     bad, b = corrupt_dynamic_block(stream, index)
     failing = BlockParallelDecoder(block_size=BLOCK)
     try:
-        failing.decode(bad, index)
+        with recorded_resolution(keep=b // BlockParallelDecoder.DEVICE_DECODE_BATCH) as flipped:
+            failing.decode(bad, index)
     except ValueError as exc:
         error = str(exc)
     else:
@@ -1481,12 +1665,16 @@ def gzip_decode_path(corpus: bytes, stream: bytes, index):
     res = {"path": "gzip_decode", "bytes": len(corpus), "compressed": len(stream),
            "ratio": len(corpus) / len(stream), "median_s": sec, "runs_s": times,
            "MBps": len(corpus) / sec / 1e6, "blocks": dict(kinds),
-           "p3_launches_per_decode": batches, "launches": launches, "runs_counted": len(outs)}
+           "p3_launches_per_decode": batches, "resolution_rounds": rounds,
+           "launches": launches, "runs_counted": len(outs)}
     log("e2e " + json.dumps(res))
-    return res, kernel
+    resolution = {name: kept_resolution[name] for name in ("inflate_expand", "inflate_resolve")}
+    resolution["dyn"] = scan_resolution_inputs(*shapes["dyn"])
+    resolution["flipped"] = {name: flipped[name] for name in ("inflate_expand", "inflate_resolve")}
+    return res, kernel, resolution
 
 
-def gzip_fixed_v2_path(corpus: bytes) -> tuple[dict, dict]:
+def gzip_fixed_v2_path(corpus: bytes) -> tuple[dict, dict, dict]:
     """The v2 route over the whole corpus: ``make_block_encode_fn(kernel=
     "v2", segment_index=True)`` through ``BlockParallelEncoder`` (one warm
     encode, three timed), stdlib zlib gives the corpus back; then the
@@ -1502,9 +1690,12 @@ def gzip_fixed_v2_path(corpus: bytes) -> tuple[dict, dict]:
     if set(kinds) != {"fixed"}:
         raise AssertionError(f"the v2 stream holds other blocks than fixed ones: {dict(kinds)}")
     dec = BlockParallelDecoder(block_size=BLOCK)
+    kept_resolution = {}
 
     def decodes():
-        outs = [dec.decode(stream, index)]
+        with recorded_resolution() as resolution:
+            outs = [dec.decode(stream, index)]
+        kept_resolution.update(resolution)
         dtimes = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1520,15 +1711,18 @@ def gzip_fixed_v2_path(corpus: bytes) -> tuple[dict, dict]:
     if dlaunches["inflate_scan"] != batches * len(outs):
         raise AssertionError(f"{dlaunches['inflate_scan']} P3 launches in {len(outs)} "
                              f"read-backs of {batches} batches")
+    check_resolution_launches("gzip_fixed_v2_decode", dlaunches, batches, len(outs))
     dsec = statistics.median(dtimes)
     back = {"path": "gzip_fixed_v2_decode", "bytes": len(corpus), "compressed": len(stream),
             "ratio": len(corpus) / len(stream), "median_s": dsec, "runs_s": dtimes, "MBps": len(corpus) / dsec / 1e6,
+            "resolution_rounds": summed_rounds(kept_resolution),
             "launches": dlaunches, "runs_counted": len(outs)}
     log(f"gzip_fixed_v2: {len(index.raw_lengths)} fixed blocks; 4 read-backs give the corpus, "
         f"{dlaunches['inflate_scan']} P3 launches ({batches} a decode)")
     log("e2e " + json.dumps(back))
+    resolution = {name: kept_resolution[name] for name in ("inflate_expand", "inflate_resolve")}
     return (summary("gzip_fixed_v2", corpus, stream, times, launches, depth=V2_DEPTH,
-                    read_back_MBps=back["MBps"], last_timings=fn.last_timings), back)
+                    read_back_MBps=back["MBps"], last_timings=fn.last_timings), back, resolution)
 
 
 @contextlib.contextmanager
@@ -1656,21 +1850,21 @@ def mesh_encode_path(corpus: bytes, blocks: np.ndarray, lens: np.ndarray) -> dic
 
 # The gzip decode's stages, by the module whose globals the decode looks
 # them up in: the host's header parse, the upload, the table build, P3,
-# the expansion, the doubling rounds, the fetches, the stored copies.
+# the expansion (P7), the resolution (P6), the fetches, the stored copies.
 DECODE_STAGES = (
     (inflate_dyn, "parse_block_tables"), (scheduler, "_upload"),
     (inflate_lut, "_lit_lut_block"), (inflate_lut, "_dist_lut_block"),
-    (inflate_mod, "inflate_scan"), (inflate_mod, "_expand"), (inflate_mod, "_resolve"),
-    (scheduler, "_fetch"), (scheduler, "_stored_copy"),
+    (inflate_mod, "inflate_scan"), (inflate_resolve, "expand_indexed"),
+    (inflate_resolve, "resolve_indexed"), (scheduler, "_fetch"), (scheduler, "_stored_copy"),
 )
 
 
 def gzip_decode_stage_ms(stream: bytes, index) -> dict:
     """One gzip_decode with each stage synchronised before and after: ms
-    per stage, the rest of the decode, and the doubling rounds' count
-    (whole-map and compacted)."""
+    per stage, the rest of the decode, and the resolution's rounds
+    (whole-map and compacted, summed over the batches, from P6's device
+    counters)."""
     times = dict.fromkeys((name for _, name in DECODE_STAGES), 0.0)
-    rounds = collections.Counter()
 
     def timed(name, fn):
         def wrapper(*args, **kw):
@@ -1682,28 +1876,23 @@ def gzip_decode_stage_ms(stream: bytes, index) -> dict:
             return out
         return wrapper
 
-    def counted(name, fn):
-        def wrapper(*args, **kw):
-            rounds[name] += 1
-            return fn(*args, **kw)
-        return wrapper
-
-    saved = [(mod, name, getattr(mod, name)) for mod, name in DECODE_STAGES]
-    saved += [(inflate_mod, name, getattr(inflate_mod, name)) for name in ("_double", "_double_sub")]
-    for mod, name, fn in saved:
-        setattr(mod, name, counted(name, fn) if name.startswith("_double") else timed(name, fn))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        BlockParallelDecoder(block_size=BLOCK).decode(stream, index)
-        torch.cuda.synchronize()
-        total = (time.perf_counter() - t0) * 1e3
-    finally:
+    with recorded_resolution() as kept:
+        saved = [(mod, name, getattr(mod, name)) for mod, name in DECODE_STAGES]
         for mod, name, fn in saved:
-            setattr(mod, name, fn)
+            setattr(mod, name, timed(name, fn))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            BlockParallelDecoder(block_size=BLOCK).decode(stream, index)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
     times["rest"] = total - sum(times.values())
     times["total"] = total
-    times["doubling_rounds"] = dict(rounds)
+    whole, compacted = summed_rounds(kept)
+    times["doubling_rounds"] = {"whole_map": whole, "compacted": compacted}
     return times
 
 
@@ -1756,23 +1945,6 @@ def recorded_waves():
         device_inflate.spec_scan_wave = scan
 
 
-@contextlib.contextmanager
-def counted_rounds():
-    """While open, the dict it yields counts the resolve's doubling rounds."""
-    rounds = {"rounds": 0}
-    double = inflate_spec._double
-
-    def counting(root):
-        rounds["rounds"] += 1
-        return double(root)
-
-    inflate_spec._double = counting
-    try:
-        yield rounds
-    finally:
-        inflate_spec._double = double
-
-
 def gzip_foreign_decode_path(corpus: bytes):
     """The corpus's stdlib gzip stream decoded on the card through
     ``zlib_device``: one warm decode, whose waves are recorded, then three
@@ -1788,7 +1960,7 @@ def gzip_foreign_decode_path(corpus: bytes):
     dev = torch.device("cuda")
 
     def decodes():
-        with recorded_waves() as kept, counted_rounds() as rounds:
+        with recorded_waves() as kept, recorded_resolution() as resolution:
             runs = [foreign_decode(stream, len(corpus))]
         times = []
         for _ in range(3):
@@ -1796,9 +1968,10 @@ def gzip_foreign_decode_path(corpus: bytes):
             t0 = time.perf_counter()
             runs.append(foreign_decode(stream, len(corpus)))
             times.append(time.perf_counter() - t0)
-        return runs, times, kept, rounds["rounds"]
+        return runs, times, kept, resolution
 
-    (runs, times, kept, rounds), launches = run_path("gzip_foreign_decode", decodes)
+    (runs, times, kept, resolution), launches = run_path("gzip_foreign_decode", decodes)
+    rounds = summed_rounds(resolution)[0]
     for res, out in runs:
         if (res.status is not DecodeStatus.Finished or res.input_remain or out != corpus):
             raise AssertionError(f"a foreign decode of the corpus's gzip stream failed: {res}")
@@ -1806,8 +1979,9 @@ def gzip_foreign_decode_path(corpus: bytes):
     if launches["inflate_spec"] != kept["waves"] * len(runs):
         raise AssertionError(f"{launches['inflate_spec']} P4 launches in {len(runs)} decodes "
                              f"of {kept['waves']} waves")
+    check_resolution_launches("gzip_foreign_decode", launches, 1, len(runs))
     log(f"gzip_foreign_decode: 4 card decodes give the corpus; blocks {dict(kinds)}; "
-        f"{kept['waves']} P4 launches a decode; {rounds} doubling rounds")
+        f"{kept['waves']} P4 launches a decode; {rounds} doubling rounds (P6's device counter)")
 
     bits = [b for b, _, _ in kept["blocks"]]
     i = next(i for i, (_, kind, _) in enumerate(kept["blocks"]) if kind == 2)
@@ -1848,7 +2022,7 @@ def gzip_foreign_decode_path(corpus: bytes):
            "p4_launches_per_decode": kept["waves"], "doubling_rounds": rounds,
            "cpu_head_decode_s": t_cpu, "launches": launches, "runs_counted": len(runs)}
     log("e2e " + json.dumps(res))
-    return res, kernel
+    return res, kernel, {name: resolution[name] for name in ("inflate_expand", "inflate_resolve")}
 
 
 # The foreign decode's stages, by their names in device_inflate: the host's
@@ -1860,7 +2034,8 @@ FOREIGN_STAGES = ("parse_block_header_at", "build_foreign_tables", "spec_scan_wa
 
 def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
     """One gzip_foreign_decode with each stage synchronised before and
-    after: ms per stage, the rest of the decode, and the doubling rounds."""
+    after: ms per stage, the rest of the decode, and the doubling rounds
+    (P6's device counter)."""
     times = dict.fromkeys(FOREIGN_STAGES, 0.0)
     saved = {name: getattr(device_inflate, name) for name in FOREIGN_STAGES}
 
@@ -1877,7 +2052,7 @@ def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
     for name, fn in saved.items():
         setattr(device_inflate, name, timed(name, fn))
     try:
-        with counted_rounds() as rounds:
+        with recorded_resolution() as kept:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res, _ = foreign_decode(stream, size)
@@ -1890,8 +2065,40 @@ def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
         raise AssertionError(f"the profiled foreign decode did not finish: {res}")
     times["rest"] = total - sum(times.values())
     times["total"] = total
-    times["doubling_rounds"] = rounds["rounds"]
+    times["doubling_rounds"] = summed_rounds(kept)[0]
     return times
+
+
+def check_resolution(gz: dict, v2: dict, foreign: dict) -> list[dict]:
+    """P7 and P6 held to their plain versions exactly at the three paths'
+    recorded inputs (gzip_decode's first batch, gzip_fixed_v2_decode's,
+    gzip_foreign_decode's stream-global token list and roots), and on
+    gzip_decode's batch at P3's other shape (dyn: 15-bit tables at (1,
+    128)) and on the batch of the stream with a byte flipped (phase 4),
+    whose resolution must not be ok. Returns their report entries."""
+    inputs = {}
+    for path, rec in (("gzip_decode", gz), ("gzip_fixed_v2_decode", v2),
+                      ("gzip_foreign_decode", foreign)):
+        for name in ("inflate_expand", "inflate_resolve"):
+            inputs[name, path] = rec[name]
+    entries = check_kernels(inputs, ["inflate_expand", "inflate_resolve"])
+    for entry in entries:
+        name = entry["name"]
+        dyn = hold_to_twin(name, "gzip_decode", KERNELS[name], *gz["dyn"][name])
+        dyn.update(shape="dyn: the records of P3 at 15-bit tables, (1, 128), on gzip_decode's "
+                         "first batch; the path's streams need none, so it launches none",
+                   launches=0)
+        flipped = hold_to_twin(name, "gzip_decode", KERNELS[name], *gz["flipped"][name])
+        flipped.update(shape="the batch of gzip_decode's stream with a byte flipped in its first "
+                             "dynamic block (phase 4), outside the counted runs", launches=0)
+        entry["other_shapes"] = [dyn, flipped]
+    args, kw = gz["flipped"]["inflate_resolve"]
+    out, ok, rounds = inflate_resolve.resolve_indexed_cuda(*args, **kw)
+    if int(ok[0]) != 0:
+        raise AssertionError("the flipped stream's batch resolves ok")
+    log(f"resolution: P7 and P6 equal their plain versions on the three paths, the dyn shape "
+        f"and the flipped batch (ok 0 in both; rounds {rounds.tolist()})")
+    return entries
 
 
 def make_encoder(path: str):
@@ -2931,7 +3138,7 @@ def gzip_v1_path(corpus: bytes, blocks: np.ndarray, lens: np.ndarray) -> dict:
     the corpus's 64 blocks through ``BlockParallelEncoder``: one warm
     encode, three timed; stdlib zlib gives the corpus back; one step over
     the first group runs under torch.profiler and must launch CUDA kernels
-    (the step ran on the card; none of the ten hand kernels is on its
+    (the step ran on the card; none of the twelve hand kernels is on its
     path); the CPU's step over the first group gives the card's bytes,
     lengths and checks. Then ``byte_histogram`` of the corpus on the card
     equals ``np.bincount``."""
@@ -3201,12 +3408,14 @@ def main() -> None:
                       torch.from_numpy(blocks.reshape(-1)).cuda(), zstd_call, scan_args,
                       torch.from_numpy(blocks).cuda(), torch.from_numpy(lens).cuda()),
         [name for name in KERNELS
-         if name not in ("huf_decode_lanes", "inflate_scan", "inflate_spec")])
+         if name not in ("huf_decode_lanes", "inflate_scan", "inflate_spec", "inflate_expand",
+                         "inflate_resolve")])
     runs = {}
     runs["gzip_lex"], gz_stream, gz_index = gzip_lex_path(corpus)
-    runs["gzip_decode"], p3_entry = gzip_decode_path(corpus, gz_stream, gz_index)
-    runs["gzip_foreign_decode"], p4_entry = gzip_foreign_decode_path(corpus)
-    runs["gzip_fixed_v2"], runs["gzip_fixed_v2_decode"] = gzip_fixed_v2_path(corpus)
+    runs["gzip_decode"], p3_entry, gz_resolution = gzip_decode_path(corpus, gz_stream, gz_index)
+    runs["gzip_foreign_decode"], p4_entry, foreign_resolution = gzip_foreign_decode_path(corpus)
+    runs["gzip_fixed_v2"], runs["gzip_fixed_v2_decode"], v2_resolution = gzip_fixed_v2_path(corpus)
+    p67_entries = check_resolution(gz_resolution, v2_resolution, foreign_resolution)
     metas = {}
     for p in HASH_PATHS:
         runs[p], metas[p] = zlib_hash_path(p, corpus)
@@ -3220,7 +3429,7 @@ def main() -> None:
     native_twins(corpus)
     runs.update(host_routes(corpus))
     runs["gzip_v1"] = gzip_v1_path(corpus, blocks, lens)
-    kernels += p2_entry + p3_entry + p4_entry
+    kernels += p2_entry + p3_entry + p4_entry + p67_entries
     log(f"e2e side by side ({smi.splitlines()[0]}): " + ", ".join(
         f"{p} {runs[p]['MBps']:.2f} MB/s ratio {runs[p]['ratio']:.4f}"
         for p in ("gzip_lex", "gzip_decode", "gzip_foreign_decode", "gzip_fixed_v2",

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Kernel launches per kernel name since the last reset_launch_counts().
 LAUNCHES = {"lcp_candidates": 0, "parse_cover": 0, "emit_pack": 0,
             "match_candidates": 0, "adler_tiles": 0, "fse_seq_scan": 0,
-            "huf_decode_lanes": 0, "inflate_scan": 0, "inflate_spec": 0, "build_tables": 0}
+            "huf_decode_lanes": 0, "inflate_scan": 0, "inflate_spec": 0, "build_tables": 0,
+            "inflate_expand": 0, "inflate_resolve": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -51,6 +52,11 @@ _SIGNATURES = {
     "compu_inflate_scan_smem": (_I, _I, _I),
     "compu_inflate_spec": (_P, _LL, _P, _LL, _LL, _P, _P, _P),
     "compu_build_tables": (_P,) * 16 + (_LL, _P),
+    "compu_inflate_resolve_max_grid": (),
+    "compu_inflate_resolve_ctr_words": (),
+    "compu_inflate_expand_indexed": (_P, _LL, _I, _LL, _P, _P, _P),
+    "compu_inflate_expand_foreign": (_P, _P, _P, _LL, _P, _P, _LL, _P, _P),
+    "compu_inflate_resolve": (_P, _LL, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _P),
 }
 
 

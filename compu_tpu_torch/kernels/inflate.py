@@ -6,13 +6,16 @@ bit (``seg_bits``), so a block decodes one lane per segment:
 
 * phase 1, the token scan: kernel P3 (``kernels/inflate_scan.py``), one
   lane a segment, one packed record a token;
-* expansion: a scatter-max of record slot ids at the token starts and a
-  running max give every output position its token (slot ids grow with
-  the stream, and a merged match's token lives in an earlier lane); each
-  match position's source is ``start - dist + (rel mod dist)``, the mod
-  folding overlapping copies;
-* phase 2, resolution: pointer doubling over the batch's positions until
-  every source is a literal.
+* expansion, kernel P7 (``kernels/inflate_resolve.py``): a scatter-max
+  of record slot ids at the token starts and a running max give every
+  output position its token (slot ids grow with the stream, and a merged
+  match's token lives in an earlier lane); each match position's source
+  is ``start - dist + (rel mod dist)``, the mod folding overlapping
+  copies; int32 roots;
+* phase 2, resolution, kernel P6: pointer doubling over the batch's
+  positions until every source is a literal, on the reference's schedule
+  (whole-map rounds, then rounds over the compacted unresolved set), with
+  no host read between the scan and the caller's fetch.
 
 ``decode_blocks_indexed`` is the fixed-code route: the same scan as the
 dyn route, one token a step for 128 steps, over lookup tables built from
@@ -24,15 +27,13 @@ the reference's.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..formats.deflate import consts
-from .inflate_scan import NO_TOKEN, SEG, inflate_scan, lane_setup
+from . import inflate_resolve
+from .inflate_scan import SEG, inflate_scan, lane_setup
 
-DUMP = 1 << 16  # cells the expansion's scatter drops slots without a token into
-ROW = 4096      # elements a row of the expansion's running max
+ROW = 4096      # elements a row of the plain expansions' running max
 
 
 def _scan_ok(seg_bits: torch.Tensor, ns: torch.Tensor, outp: torch.Tensor,
@@ -66,32 +67,10 @@ def _expand_and_resolve(rec: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *
 
 
 def _expand(rec: torch.Tensor, *, B: int, N: int, S: int, R: int) -> torch.Tensor:
-    """Each output position's token, by a scatter-max of slot ids at the
-    token starts, a running max and one gather; returns the signed roots
-    (B*N,) int64: -(byte + 1) at a literal, else the position it copies."""
-    dev = rec.device
-    L, NT = B * S, B * N
-    rec = rec.to(torch.int64).reshape(L, R)
-    t_start = rec & 0x1FF
-    flat_start = (torch.arange(L, device=dev)[:, None] * SEG + t_start).reshape(-1)
-    # Slots without a token (most of them: R is sized for the worst case)
-    # land in a dump area past the positions, spread over DUMP cells so
-    # their atomic maxima do not queue on one address, and are cut off.
-    slot = torch.arange(1, L * R + 1, device=dev)
-    dump = NT + SEG + 512
-    addr = torch.where(t_start.reshape(-1) < NO_TOKEN, flat_start, dump + (slot & (DUMP - 1)))
-    slot_at = torch.zeros(dump + DUMP, dtype=torch.int64, device=dev).scatter_reduce(
-        0, addr, slot, "amax")[:NT]
-    tokid = torch.clamp(_running_max(slot_at) - 1, 0, L * R - 1)
-    rec_of = rec.reshape(-1)[tokid]   # the one expansion gather
-    is_lit = ((rec_of >> 9) & 1) > 0
-    payload = (rec_of >> 10) & 0x7FFF
-    dist = payload + 1
-    # A token's start: its lane's base plus the start in the lane's frame
-    # (a merged match can start in an earlier lane than the position's).
-    start = (tokid // R) * SEG + (rec_of & 0x1FF)
-    src = start - dist + torch.remainder(torch.arange(NT, device=dev) - start, dist)
-    return torch.where(is_lit, -(payload + 1), torch.clamp(src, 0, NT - 1))
+    """Each output position's signed root, (B*N,) int32: -(byte + 1) at a
+    literal, else the position it copies (``inflate_resolve.expand_indexed``:
+    kernel P7 on CUDA, its plain version on the CPU)."""
+    return inflate_resolve.expand_indexed(rec, B=B, N=N, S=S, R=R)
 
 
 def _running_max(x: torch.Tensor) -> torch.Tensor:
@@ -123,32 +102,11 @@ def _double_sub(root: torch.Tensor, cand: torch.Tensor, sub: torch.Tensor) -> to
 
 
 def _resolve(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *, N: int):
-    """Pointer doubling of the roots to literals; (out u8, ok i32[1]). The
-    rounds read their remaining count on the host, once a round."""
-    NT = root.shape[0]
-    gp = torch.arange(NT, device=root.device)
-    valid = (gp % N) < ns.to(torch.int64)[gp // N]
-    max_iters = max(1, math.ceil(math.log2(max(NT, 2))))
-    ksub = max(SEG, NT // 8)
-
-    def unresolved() -> int:
-        return int(((root >= 0) & valid).sum())
-
-    # Whole-map rounds until the unresolved set fits ksub...
-    it, left = 0, unresolved()
-    while left > ksub and it < max_iters:
-        root = _double(root)
-        it, left = it + 1, unresolved()
-    # ...then rounds over that set alone (the first ksub of it, in order).
-    cand = torch.nonzero((root >= 0) & valid).reshape(-1)[:ksub]
-    sub = root[cand]
-    it = 0
-    while it < max_iters and bool((sub >= 0).any()):
-        sub = _double_sub(root, cand, sub)
-        it += 1
-    out = (torch.where(root < 0, -root, 1) - 1).to(torch.uint8)
-    ok = ok & torch.where(valid, root < 0, True).all()
-    return out, ok.to(torch.int32).reshape(1)
+    """Pointer doubling of the roots to literals; (out u8, ok i32[1])
+    (``inflate_resolve.resolve_indexed``: kernel P6 on CUDA, with no host
+    read; its plain version on the CPU)."""
+    out, ok, _ = inflate_resolve.resolve_indexed(root, ns, ok, N=N)
+    return out, ok
 
 
 def _fixed_luts(B: int, device):

@@ -59,13 +59,12 @@ gather; here a lane reads its bits by position from the padded stream
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 
 from ..formats.deflate import consts
-from .inflate import _double, _running_max
+from . import inflate_resolve
 
 MAXB = 15           # RFC max code length: foreign streams use the full range
 PHASES = 48         # max token bits: 15 + 5 + 15 + 13
@@ -77,10 +76,6 @@ FSTEPS = RF // KF
 LANES = WAVE_CHUNKS * PHASES
 MAX_PHASE = 319     # a step takes tokens starting at most this far past its group
 PAD_BYTES = 16      # zero bytes past the stream: a token's 64-bit window stays inside
-# Pointer-doubling rounds between two reads of the unresolved count: the
-# roots do not change once every one is a literal, so later rounds are
-# idempotent, and the host waits for the device once per group.
-ROUNDS_PER_CHECK = 4
 
 # The block's code tables, in int32 words (build_foreign_tables): the two
 # primaries, then per code (lit/len, distance) and length l = 1..15 its
@@ -340,38 +335,16 @@ def resolve_foreign(outlens: torch.Tensor, is_lit: torch.Tensor, payload: torch.
 
     The reference pads the tokens and positions to powers of two (its
     shapes are static); here both are the real ones. Every output position
-    takes the last token that starts at or before it (a scatter of token
-    ids at their starts, then a running max); a match position's source is
-    ``start - dist + (rel mod dist)``. Pointer doubling, two hops a round,
-    then resolves every source to a literal, with the reference's limit of
-    ceil(log2 NT) rounds, NT its padded length; the unresolved count is
-    read every ROUNDS_PER_CHECK rounds."""
-    dev = stored_out.device
-    NT = total_out
-    T = outlens.shape[0]
-    starts = starts.to(torch.int64)
-    pay = payload.to(torch.int64)
-    slot_at = torch.zeros(NT, dtype=torch.int64, device=dev)
-    slot_at[starts] = torch.arange(1, T + 1, device=dev)   # starts are distinct
-    tokid = torch.clamp(_running_max(slot_at) - 1, 0, max(T - 1, 0))
-    if T:
-        start_of = starts[tokid]
-        pay_of = pay[tokid]
-        lit_of = is_lit[tokid] != 0
-        dist_of = pay_of + 1
-        gp = torch.arange(NT, device=dev)
-        src = start_of - dist_of + torch.remainder(gp - start_of, dist_of)
-        root = torch.where(lit_of, -(pay_of + 1), torch.clamp(src, 0, NT - 1))
-    else:
-        root = torch.zeros(NT, dtype=torch.int64, device=dev)
-    root = torch.where(stored_mask, -(stored_out.to(torch.int64) + 1), root)
+    takes the last token that starts at or before it; a match position's
+    source is ``start - dist + (rel mod dist)`` (``inflate_resolve.
+    expand_foreign``: kernel P7 on CUDA). Pointer doubling, two hops a
+    round, then resolves every source to a literal, with the reference's
+    limit of ceil(log2 NT) rounds, NT its padded length
+    (``inflate_resolve.resolve_foreign_roots``: kernel P6 on CUDA, with no
+    host read; on the CPU the unresolved count is read every
+    ``inflate_resolve.ROUNDS_PER_CHECK`` rounds)."""
+    root = inflate_resolve.expand_foreign(outlens, is_lit, payload, starts, stored_out,
+                                          stored_mask, total_out=total_out)
+    out, ok, _ = inflate_resolve.resolve_foreign_roots(root)
+    return out, ok
 
-    max_iters = max(12, math.ceil(math.log2(max(NT, 2))))   # log2 of the reference's NT
-    it = 0
-    while it < max_iters and bool((root >= 0).any()):
-        for _ in range(min(ROUNDS_PER_CHECK, max_iters - it)):
-            root = _double(root)
-            it += 1
-    out = (torch.where(root < 0, -root, 1) - 1).to(torch.uint8)
-    ok = (root < 0).all()
-    return out, ok.to(torch.int32).reshape(1)

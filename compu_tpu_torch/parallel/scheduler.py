@@ -189,7 +189,11 @@ class BlockParallelDecoder:
     copied on the host (``_stored_copy``), every other block one row of the
     batch's scan. A batch whose codes are all at most 12 bits takes the LUT
     route, another the dyn route. Every batch is decoded before the first
-    result is fetched (its doubling rounds read their counts on the host).
+    result is fetched, and on CUDA no host read remains before that fetch:
+    a batch's scan (P3), expansion (P7) and pointer doubling (P6) keep
+    their counts on the device, so the host parses the next batch's
+    headers while the card decodes this one (the next upload, a pageable
+    copy, then waits for it).
     The device route needs the index's ``segment_bits``; a batch that fails
     its consistency check raises ``ValueError``.
 
