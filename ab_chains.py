@@ -6,7 +6,7 @@
     python3 ab_chains.py inflate_scan PARENT_DIR  # P3; PARENT_DIR: commit 21570d8
     python3 ab_chains.py inflate_spec PARENT_DIR  # P4; PARENT_DIR: commit bac9186
     python3 ab_chains.py build_tables PARENT_DIR  # P5; PARENT_DIR: commit ecc7b5f
-    python3 ab_chains.py inflate_resolve PARENT_DIR  # P7 and P6; PARENT_DIR: commit 6992a97
+    python3 ab_chains.py inflate_resolve PARENT_DIR  # P7 and P6; PARENT_DIR: commit f23e061
 
 ``PARENT_DIR`` holds a checkout of the commit named (``git archive``
 unpacked). The earlier kernel is built from it into a library of its own
@@ -92,25 +92,33 @@ reduction, a word a warp through shared memory, one barrier), the floor
 of the wider design that the kernel's header weighs. Both kernels' loops
 that hold a shuffle (the fill steps) go to ``ab_build_tables_sass.txt``.
 
-``inflate_resolve``: the expansion and the resolution of both decodes
-were plain PyTorch in 6992a97 (``kernels/inflate.py::_expand`` and
-``_resolve``, int64 roots, the unresolved count read on the host each
-round; ``kernels/inflate_spec.py::resolve_foreign``, every four rounds).
-That commit's package is imported from PARENT_DIR under another name
-(``parent_compu_tpu_torch``: the package's imports are relative) and its
-stages run on the card beside this tree's P7 and P6. The inputs are
-``chip_smoke.py``'s: gzip_decode's first batch (the gzip_lex stream of the
-16 MB corpus, encoded on the card, 16 blocks of 256 KiB: P3's records at
-(6, 26), the blocks' lengths and the scan's flag) and gzip_foreign_decode's
+``inflate_resolve``: ``inflate_resolve.cu`` of f23e061 is P7 and P6
+before their redesign: the indexed expansion zeroes the map, scatters
+slot ids with atomics, takes chunk maxima and scans the map (three grid
+barriers); the foreign one a warp 1,024 positions, one lane a position;
+P6 passes over the whole map in every hop, with a copy pass before and an
+output pass after. That commit's package is imported from PARENT_DIR under
+another name (``parent_compu_tpu_torch``: the package's imports are
+relative; it builds its own library in its own ``_build/``), and its
+kernels run beside this tree's on ``chip_smoke.py``'s inputs:
+gzip_decode's first batch (the gzip_lex stream of the 16 MB corpus,
+encoded on the card, 16 blocks of 256 KiB: P3's records at (6, 26), the
+blocks' lengths and the scan's flag) and gzip_foreign_decode's
 stream-global token list (stdlib zlib's level-6 gzip stream of the
-corpus). Both designs must give the same bytes and ``ok``; then each is
-timed in turns, parent, this tree, this tree, parent, on the host clock
-around a synchronised call (median of 5 calls a turn; the parent's stages
-read counts on the host, so their events would time the host), and this
-tree's two kernels alone with ``chip_smoke.device_ms``, beside their
-bounds (``chip_smoke.expand_work``, ``resolve_work``). One call of each
-design runs under torch.profiler (``chip_smoke.device_profile``: its
-kernels, copies, kernel ms and idle share).
+corpus). Both designs must equal the plain versions exactly (roots, bytes,
+``ok``, rounds); then in turns, parent, this tree, this tree, parent, P7
+and P6 alone with ``chip_smoke.device_ms`` beside their bounds
+(``chip_smoke.expand_work``, ``resolve_work``) and both together on the
+host clock around a synchronised call (median of 5). Phases: a copy of
+each design's source with block 0's SM clock read at each cooperative
+kernel's start and after each grid barrier (``stamped_library``), per
+phase the median of 5 launches in microseconds. The doubling is replayed
+hop by hop in PyTorch on the same roots (``doubling_trace``): the
+unresolved count after each hop and the share of 512-position tiles that
+still hold an unresolved position after each round. One grid barrier
+alone is timed at several blocks an SM and threads a block
+(``smoke_csrc/grid_sync.cu``). One call of each design runs under
+torch.profiler (``chip_smoke.device_profile``).
 
 The last line is one JSON object with the times.
 """
@@ -123,6 +131,7 @@ import importlib
 import importlib.util
 import json
 import pathlib
+import re
 import statistics
 import sys
 import time
@@ -134,8 +143,8 @@ import chip_smoke as cs
 from compu_tpu_torch import _build
 from compu_tpu_torch.kernels import (
     build_tables as bt,
-    inflate,
     inflate_lut,
+    inflate_resolve,
     inflate_scan,
     inflate_spec,
     parse_cover,
@@ -818,61 +827,285 @@ def resolution_inputs(corpus: bytes) -> dict:
     return {"gzip_decode": gz, "gzip_foreign_decode": foreign}
 
 
+# A copy of inflate_resolve.cu that reads the SM clock (clock64) in block 0's
+# thread 0 at the start of each cooperative kernel and after each of its
+# grid barriers, into a device array read back after the launch.
+STAMP_DEF = """
+__device__ long long g_stamps[256];
+__device__ int g_nstamps;
+
+__device__ __forceinline__ void stamp() {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && g_nstamps < 256) {
+    long long t;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) :: "memory");
+    g_stamps[g_nstamps++] = t;
+  }
+}
+
+extern "C" int compu_stamps_reset() {
+  const int zero = 0;
+  return static_cast<int>(cudaMemcpyToSymbol(g_nstamps, &zero, sizeof(int)));
+}
+
+extern "C" int compu_stamps_read(void* host, void* n) {
+  cudaError_t err = cudaMemcpyFromSymbol(n, g_nstamps, sizeof(int));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+  return static_cast<int>(err);
+}
+"""
+
+
+def stamped_library(source: pathlib.Path, name: str, signatures: dict) -> ctypes.CDLL:
+    """``source`` with a clock stamp at each cooperative kernel's start and
+    after each of its grid barriers (``STAMP_DEF``), built as a library of
+    its own and loaded with the resolution's C ``signatures`` (its tree's)."""
+    src = source.read_text()
+    anchor = "namespace cg = cooperative_groups;\n"
+    if src.count(anchor) != 1:
+        raise AssertionError(f"the stamps do not fit {source}")
+    src = src.replace(anchor, anchor + STAMP_DEF)
+    src, syncs = re.subn(r"^(\s*)grid\.sync\(\);", r"\g<0>\n\1stamp();", src, flags=re.M)
+    src, starts = re.subn(r"^(\s*)cg::grid_group grid = cg::this_grid\(\);", r"\g<0>\n\1stamp();",
+                          src, flags=re.M)
+    if not syncs or starts != 2:
+        raise AssertionError(f"the stamps do not fit {source}: {syncs} barriers, {starts} kernels")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"{name}.cu"
+    path.write_text(src)
+    lib = ctypes.CDLL(str(_build.build([path], f"lib{name}")))
+    for entry, argtypes in signatures.items():
+        if entry.startswith(("compu_inflate_resolve", "compu_inflate_expand")) and \
+                hasattr(lib, entry):
+            getattr(lib, entry).argtypes = list(argtypes)
+            getattr(lib, entry).restype = ctypes.c_int
+    lib.compu_stamps_read.argtypes = [_P, _P]
+    return lib
+
+
+def stamped_call(build_mod, lib, fn, args, kw, ghz: float, reps: int = 5) -> list:
+    """``fn`` (a wrapper that finds its library through ``build_mod.lib``)
+    run on the stamped library ``lib``: per launch, block 0's stamps as
+    microseconds from the first; ``reps`` launches after a warm one."""
+    saved = build_mod.lib
+    build_mod.lib = lambda: lib
+    runs = []
+    try:
+        for k in range(reps + 1):
+            if lib.compu_stamps_reset():
+                raise RuntimeError("compu_stamps_reset failed")
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+            buf, n = (ctypes.c_longlong * 256)(), ctypes.c_int()
+            if lib.compu_stamps_read(ctypes.addressof(buf), ctypes.addressof(n)):
+                raise RuntimeError("compu_stamps_read failed")
+            if k:
+                runs.append([(buf[i] - buf[0]) / ghz / 1e3 for i in range(n.value)])
+    finally:
+        build_mod.lib = saved
+    return runs
+
+
+def phase_split(runs: list, labels: list) -> dict:
+    """Median microseconds of each phase between consecutive stamps, by
+    label; by number where the stamps do not match the labels."""
+    n = min(len(r) for r in runs) - 1
+    if any(len(r) != len(labels) + 1 for r in runs):
+        labels = [f"phase{i}" for i in range(n)]
+    return {lab: statistics.median(r[i + 1] - r[i] for r in runs) for i, lab in enumerate(labels)}
+
+
+def parent_p6_labels(rounds, nsub: int) -> list:
+    """PR 19's resolve_kernel between its stamps: the copy with the count,
+    two hops a whole-map round, the compaction's count and its writes, a
+    compacted round's read and its write-back, the output."""
+    labels = ["copy_count"]
+    for r in range(rounds[0]):
+        labels += [f"round{r + 1}_hop1", f"round{r + 1}_hop2"]
+    if nsub:
+        labels += ["compaction_count", "compaction_write"]
+        for k in range(rounds[1]):
+            labels += [f"sub{k + 1}_read", f"sub{k + 1}_write"]
+    return labels + ["output"]
+
+
+def tree_p6_labels(rounds, nsub: int) -> list:
+    """This tree's resolve_kernel between its stamps: round 1 from the
+    input with the count before it (run whether or not the count lets it
+    count), one pass each later whole-map round, the compaction, one
+    barrier a compacted round; the tiles left and the flag after the last
+    stamp (no barrier)."""
+    labels = ["round1_count"] + [f"round{r + 1}" for r in range(1, rounds[0])]
+    if nsub:
+        labels.append("compaction")
+        labels += [f"sub{k + 1}" for k in range(rounds[1])]
+    return labels
+
+
+def doubling_trace(root: torch.Tensor, valid: torch.Tensor, ksub: int, max_iters: int,
+                   tile: int = 512) -> dict:
+    """The reference's schedule replayed hop by hop on ``root``: the
+    unresolved valid positions after each hop, and the share of
+    ``tile``-position tiles that still hold an unresolved position (any,
+    valid or not: a hop must visit them) after each whole-map round; then
+    the compacted set's unresolved count after each of its rounds."""
+    root = root.to(torch.int64)
+    NT = root.shape[0]
+    ntiles = -(-NT // tile)
+
+    def tiles_left(r):
+        m = torch.zeros(ntiles * tile, dtype=torch.bool, device=r.device)
+        m[:NT] = r >= 0
+        return int(m.reshape(ntiles, tile).any(1).sum()) / ntiles
+
+    hop = lambda r: torch.where(r >= 0, r[torch.clamp(r, min=0)], r)  # noqa: E731
+    left = int(((root >= 0) & valid).sum())
+    trace = {"tiles": ntiles, "unresolved_before": left, "unresolved_after_hop": [],
+             "tile_share_before": tiles_left(root), "tile_share_after_round": []}
+    it = 0
+    while left > ksub and it < max_iters:
+        for _ in range(2):
+            root = hop(root)
+            trace["unresolved_after_hop"].append(int(((root >= 0) & valid).sum()))
+        left = trace["unresolved_after_hop"][-1]
+        trace["tile_share_after_round"].append(tiles_left(root))
+        it += 1
+    cand = torch.nonzero((root >= 0) & valid).reshape(-1)[:ksub]
+    sub = root[cand]
+    trace["compacted"] = int(cand.numel())
+    trace["compacted_unresolved_after_round"] = []
+    k = 0
+    while k < max_iters and bool((sub >= 0).any()):
+        sub = torch.where(sub >= 0, root[torch.clamp(sub, min=0)], sub)
+        root[cand] = sub
+        trace["compacted_unresolved_after_round"].append(int((sub >= 0).sum()))
+        k += 1
+    return trace
+
+
+def grid_sync_costs() -> dict:
+    """One grid barrier alone (``smoke_csrc/grid_sync.cu``): a launch of
+    1,000 barriers less a launch of none, over 1,000, at each of
+    (blocks an SM, threads a block), by CUDA events, median of 5."""
+    fn = ctypes.CDLL(str(_build.build(cs.SMOKE_SOURCES, "libcompu_smoke"))).compu_grid_sync
+    fn.argtypes, fn.restype = [_P, _I, _I, _I, _P], ctypes.c_int
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for per_sm, threads in ((1, 512), (2, 512), (4, 512), (1, 1024), (2, 1024)):
+        def launch_ms(n):
+            times = []
+            for _ in range(6):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if fn(sink.data_ptr(), n, per_sm, threads, stream):
+                    raise RuntimeError(f"compu_grid_sync failed at {per_sm} x {threads}")
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            return statistics.median(times[1:])
+        none, many = launch_ms(0), launch_ms(1000)
+        res[f"{per_sm}x{threads}"] = {"launch_us": none * 1e3,
+                                      "barrier_us": (many - none) / 1000 * 1e3}
+    cs.log("grid_sync " + json.dumps(res))
+    return res
+
+
 def inflate_resolve_main(parent: pathlib.Path) -> None:
     pkg = parent_package(parent)
-    p_inflate = importlib.import_module(f"{pkg.__name__}.kernels.inflate")
-    p_spec = importlib.import_module(f"{pkg.__name__}.kernels.inflate_spec")
-    if p_inflate.__file__ == inflate.__file__:
+    p_res = importlib.import_module(f"{pkg.__name__}.kernels.inflate_resolve")
+    p_build = importlib.import_module(f"{pkg.__name__}._build")
+    if p_res.__file__ == inflate_resolve.__file__:
         raise AssertionError("the parent's package is this tree's")
+    with open(_build.BUILD_DIR / "ab_inflate_resolve_sass.txt", "w") as fh:
+        # The loops that load from global memory: the hops' tile loops (do
+        # the map's stores hold back the next tile's loads?), the
+        # expansions' lane and tile loops.
+        for label, lib in (("parent", p_build.build()), ("tree", _build.build())):
+            for symbol in ("resolve_kernel", "expand_indexed_kernel", "expand_foreign_kernel"):
+                dump_loops(label, lib, symbol, fh, reads="LDG", longest=800)
+    chase = cs.smem_round_trip()
+    ghz = chase["cycles"] / chase["ns"]
+    barriers = grid_sync_costs()
+    stamped = {"parent": (p_build, p_res, stamped_library(
+                   parent / "compu_tpu_torch" / "csrc" / "inflate_resolve.cu", "compu_p67_parent",
+                   p_build._SIGNATURES)),
+               "tree": (_build, inflate_resolve, stamped_library(
+                   _build.CSRC / "inflate_resolve.cu", "compu_p67_tree", _build._SIGNATURES))}
     recorded = resolution_inputs(cs.build_corpus(cs.CORPUS_BYTES))
     res = []
     for path, kept in recorded.items():
         (ex_args, ex_kw), (rs_args, rs_kw) = kept["inflate_expand"], kept["inflate_resolve"]
-        if path == "gzip_decode":
-            rec = ex_args[0]
-            ns, ok = rs_args[1], rs_args[2]
-            args = (rec, ns, ok)
-
-            def parent_fn(rec, ns, ok, p_inflate=p_inflate, kw=ex_kw):
-                return p_inflate._resolve(p_inflate._expand(rec, **kw), ns, ok, N=kw["N"])
-
-            def tree_fn(rec, ns, ok, kw=ex_kw):
-                return inflate._expand_and_resolve(rec, ns, ok, **kw)
-        else:
-            args = ex_args
-
-            def parent_fn(*a, p_spec=p_spec, kw=ex_kw):
-                return p_spec.resolve_foreign(*a, **kw)
-
-            def tree_fn(*a, kw=ex_kw):
-                return inflate_spec.resolve_foreign(*a, **kw)
-        want, got = parent_fn(*args), tree_fn(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{path}: this tree's resolution differs from the parent's")
-        times = collections.defaultdict(list)
-        for label, fn in (("parent", parent_fn), ("tree", tree_fn), ("tree", tree_fn),
-                          ("parent", parent_fn)):
-            times[label].append(host_ms(fn, args))
+        foreign = path == "gzip_foreign_decode"
+        ex_name = "expand_foreign_cuda" if foreign else "expand_indexed_cuda"
+        rs_name = "resolve_foreign_roots_cuda" if foreign else "resolve_indexed_cuda"
+        designs = {label: (getattr(mod, ex_name), getattr(mod, rs_name))
+                   for label, (_, mod, _) in stamped.items()}
         root = cs.expand_twin(*ex_args, **ex_kw)
-        out = cs.resolve_twin(*rs_args, **rs_kw)
+        want = cs.resolve_twin(*rs_args, **rs_kw)
+        for label, (ex, rs) in designs.items():
+            got_root = ex(*ex_args, **ex_kw)
+            got = rs(*rs_args, **rs_kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_root, root) and all(torch.equal(g, w)
+                                                        for g, w in zip(got, want))):
+                raise AssertionError(f"{path}: the {label} design differs from the plain version")
+
+        def both(label, args):
+            ex, rs = designs[label]
+            if foreign:
+                return rs(ex(*args, **ex_kw))
+            r = ex(args[0], **ex_kw)
+            return rs(r, *args[1:], **rs_kw)
+
+        both_args = ex_args if foreign else (ex_args[0], rs_args[1], rs_args[2])
+        times = collections.defaultdict(list)
+        for label in ("parent", "tree", "tree", "parent"):
+            ex, rs = designs[label]
+            times[f"{label}_p7_ms"].append(cs.device_ms(ex, ex_args, ex_kw, k=50))
+            times[f"{label}_p6_ms"].append(cs.device_ms(rs, rs_args, rs_kw, k=20))
+            times[f"{label}_host_ms"].append(host_ms(lambda *a, lb=label: both(lb, a), both_args))
         ex_bytes, _ = cs.expand_work(ex_args, ex_kw, root)
-        rs_bytes, hops, chain = cs.resolve_work(rs_args, rs_kw, out)
-        p7_ms = cs.device_ms(cs.expand_kernel, ex_args, ex_kw, k=50)
-        p6_ms = cs.device_ms(cs.resolve_kernel, rs_args, rs_kw, k=20)
+        rs_bytes, hops, chain = cs.resolve_work(rs_args, rs_kw, want)
         p7_bound = ex_bytes / cs.HBM_BYTES_PER_S * 1e3
         p6_bound = max(rs_bytes / cs.HBM_BYTES_PER_S * 1e3, chain["ops_ms"])
-        entry = {"path": path, "positions": int(root.numel()), "ok": int(got[1][0]),
-                 "parent_ms": times["parent"], "tree_ms": times["tree"],
-                 "p7_ms": p7_ms, "p7_bound_ms": p7_bound, "p7_share_of_bound": p7_bound / p7_ms,
-                 "p6_ms": p6_ms, "p6_bound_ms": p6_bound, "p6_share_of_bound": p6_bound / p6_ms,
-                 "p6_rounds": chain["rounds"], "longest_chain": chain["longest_chain"],
-                 "p6_chain_hops": hops, "l2_load_ns": chain["ns_per_op"],
-                 "parent_profiled": cs.device_profile(lambda: parent_fn(*args)),
-                 "tree_profiled": cs.device_profile(lambda: tree_fn(*args))}
+        NT = root.numel()
+        if foreign:
+            valid = torch.ones(NT, dtype=torch.bool, device=root.device)
+            max_iters, ksub = inflate_resolve.foreign_max_iters(NT), 0
+        else:
+            N = rs_kw["N"]
+            gp = torch.arange(NT, device=root.device)
+            valid = (gp % N) < rs_args[1].to(torch.int64)[gp // N]
+            max_iters, ksub = inflate_resolve.indexed_schedule(NT)
+        trace = doubling_trace(root, valid, ksub, max_iters)
+        rounds = want[2].tolist()
+        nsub = trace["compacted"]
+        phases = {}
+        for label, (bmod, mod, lib) in stamped.items():
+            ex, rs = getattr(mod, ex_name), getattr(mod, rs_name)
+            p6_labels = (parent_p6_labels if label == "parent" else tree_p6_labels)(rounds, nsub)
+            phases[label] = {"p6_us": phase_split(stamped_call(bmod, lib, rs, rs_args, rs_kw, ghz),
+                                                  p6_labels)}
+            if not foreign:
+                p7_labels = (["zero", "scatter", "chunk_max"] if label == "parent"
+                             else ["lane_summaries"])
+                phases[label]["p7_us"] = phase_split(
+                    stamped_call(bmod, lib, ex, ex_args, ex_kw, ghz), p7_labels)
+        entry = {"path": path, "positions": NT, "ok": int(want[1][0]), "rounds": rounds,
+                 **{k: v for k, v in times.items()},
+                 "p7_bound_ms": p7_bound, "p6_bound_ms": p6_bound,
+                 **{f"{k[:-3]}_share_of_bound": [(p6_bound if "p6" in k else p7_bound) / t
+                                                 for t in v]
+                    for k, v in times.items() if "_p" in k},
+                 "longest_chain": chain["longest_chain"], "p6_chain_hops": hops,
+                 "l2_load_ns": chain["ns_per_op"], "trace": trace, "phases_us": phases,
+                 "parent_profiled": cs.device_profile(lambda: both("parent", both_args)),
+                 "tree_profiled": cs.device_profile(lambda: both("tree", both_args))}
         cs.log("ab " + json.dumps(entry))
         res.append(entry)
-    print(json.dumps({"l2_load": cs.l2_round_trip(), "kernels": res}))
+    print(json.dumps({"sm_ghz": ghz, "grid_sync": barriers, "l2_load": cs.l2_round_trip(),
+                      "kernels": res}))
 
 
 MODES = {"chains": chains_main, "parse_cover": parse_cover_main,

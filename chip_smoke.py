@@ -252,7 +252,8 @@ last), decodes the gzip_lex and gzip_fixed_v2 streams with their index,
 the stdlib gzip stream (gzip_foreign_decode) and the zstd frame, once
 with every stage
 synchronised before and after (ms per stage; for gzip_decode and
-gzip_foreign_decode also the doubling rounds; for zstd_device the
+gzip_foreign_decode also the doubling rounds and the unresolved counts
+round by round, from P6's counter block; for zstd_device the
 tokenizer calls, the sequences from the tokens, the literal and sequence
 sections, xxh64 and the rest; for brotli_device the
 tokenizer calls, the commands, the distance plan with the histograms, the
@@ -1535,9 +1536,11 @@ def recorded_resolution(keep: int = 0):
     the dict it yields gets copies of the arguments of the ``keep``-th call
     of the expansion (``"inflate_expand"``) and of the resolution
     (``"inflate_resolve"``), each (args, kw), and every resolution's round
-    counts (``rounds``: (2,) int32 tensors on the device, read after the
-    decode)."""
-    kept = {"rounds": [], "calls": collections.Counter()}
+    counts (``rounds``: (2,) int32 tensors on the device) and unresolved
+    counts round by round (``counts``: the resolution's ``counts=True``
+    output, (2, max_iters + 1) int32 on the device), read after the
+    decode."""
+    kept = {"rounds": [], "counts": [], "calls": collections.Counter()}
     saved = {name: getattr(inflate_resolve, name) for name in RESOLUTION}
 
     def recording(name, fn):
@@ -1547,10 +1550,12 @@ def recorded_resolution(keep: int = 0):
             if kept["calls"][kernel] == keep:
                 kept[kernel] = (tuple(a.clone() for a in args), dict(kw))
             kept["calls"][kernel] += 1
-            out = fn(*args, **kw)
-            if kernel == "inflate_resolve":
-                kept["rounds"].append(out[2])
-            return out
+            if kernel == "inflate_expand":
+                return fn(*args, **kw)
+            *out, counts = fn(*args, counts=True, **kw)
+            kept["rounds"].append(out[2])
+            kept["counts"].append(counts)
+            return tuple(out)
         return wrapper
 
     for name, fn in saved.items():
@@ -1565,6 +1570,19 @@ def recorded_resolution(keep: int = 0):
 def summed_rounds(kept: dict) -> list:
     """The recorded resolutions' (whole-map, compacted) rounds, summed."""
     return torch.stack(kept["rounds"]).sum(0).tolist() if kept["rounds"] else [0, 0]
+
+
+def unresolved_by_round(kept: dict) -> list[dict]:
+    """Each recorded resolution's unresolved counts (P6's counter block):
+    the valid positions before the first whole-map round and after each,
+    the compacted set's size and its count after each of its rounds."""
+    res = []
+    for rounds, counts in zip(kept["rounds"], kept["counts"]):
+        whole, compacted = rounds.tolist()
+        counts = counts.tolist()
+        res.append({"whole_map": counts[0][:whole + 1],
+                    "compacted": counts[1][:compacted + 1] if compacted else []})
+    return res
 
 
 def check_resolution_launches(path: str, launches: dict, per_run: int, runs: int) -> None:
@@ -1893,6 +1911,7 @@ def gzip_decode_stage_ms(stream: bytes, index) -> dict:
     times["total"] = total
     whole, compacted = summed_rounds(kept)
     times["doubling_rounds"] = {"whole_map": whole, "compacted": compacted}
+    times["unresolved_by_round"] = unresolved_by_round(kept)
     return times
 
 
@@ -2066,6 +2085,7 @@ def foreign_decode_stage_ms(stream: bytes, size: int) -> dict:
     times["rest"] = total - sum(times.values())
     times["total"] = total
     times["doubling_rounds"] = summed_rounds(kept)[0]
+    times["unresolved_by_round"] = unresolved_by_round(kept)
     return times
 
 

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "compu_build_tables": (_P,) * 16 + (_LL, _P),
     "compu_inflate_resolve_max_grid": (),
     "compu_inflate_resolve_ctr_words": (),
+    "compu_inflate_resolve_tile": (),
     "compu_inflate_expand_indexed": (_P, _LL, _I, _LL, _P, _P, _P),
     "compu_inflate_expand_foreign": (_P, _P, _P, _LL, _P, _P, _LL, _P, _P),
     "compu_inflate_resolve": (_P, _LL, _LL, _P, _P, _I, _LL, _P, _P, _P, _P, _P),

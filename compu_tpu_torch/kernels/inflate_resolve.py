@@ -22,7 +22,12 @@ else the position it copies from. The expansions make the map of roots:
   rise strictly, as ``device_inflate``'s do.
 
 The resolutions run the reference's schedule to the round and return
-(out u8[NT], ok i32[1], rounds i32[2]: whole-map and compacted rounds):
+(out u8[NT], ok i32[1], rounds i32[2]: whole-map and compacted rounds);
+with ``counts=True`` also the unresolved counts round by round, int32
+(2, max_iters + 1): row 0 the unresolved valid positions before the first
+whole-map round and after each, row 1 the compacted set's size and its
+unresolved count after each of its rounds, 0 past the rounds that ran
+(the kernel's counter block, read after its launch):
 
 * ``resolve_indexed``: whole-map rounds of two hops while more than
   ``ksub = max(128, NT // 8)`` valid positions are unresolved and fewer
@@ -140,10 +145,12 @@ def _out_bytes(root: torch.Tensor) -> torch.Tensor:
     return (torch.where(root < 0, -root, 1) - 1).to(torch.uint8)
 
 
-def resolve_indexed_torch(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *, N: int):
+def resolve_indexed_torch(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *, N: int,
+                          counts: bool = False):
     """Pointer doubling of the roots to literals; (out u8, ok i32[1], rounds
-    i32[2]). The rounds read their remaining count on the host, once a
-    round; ``root`` is left as it was."""
+    i32[2]), and with ``counts`` the unresolved counts (2, max_iters + 1).
+    The rounds read their remaining count on the host, once a round;
+    ``root`` is left as it was."""
     from .inflate import _double, _double_sub
 
     NT = root.shape[0]
@@ -151,44 +158,57 @@ def resolve_indexed_torch(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor
     gp = torch.arange(NT, device=root.device)
     valid = (gp % N) < ns.to(torch.int64)[gp // N]
     max_iters, ksub = indexed_schedule(NT)
+    seen = torch.zeros(2, max_iters + 1, dtype=torch.int32)
 
     def unresolved() -> int:
         return int(((root >= 0) & valid).sum())
 
     # Whole-map rounds until the unresolved set fits ksub...
     it, left = 0, unresolved()
+    seen[0, 0] = left
     while left > ksub and it < max_iters:
         root = _double(root)
         it, left = it + 1, unresolved()
+        seen[0, it] = left
     # ...then rounds over that set alone (the first ksub of it, in order).
     cand = torch.nonzero((root >= 0) & valid).reshape(-1)[:ksub]
     sub = root[cand]
+    seen[1, 0] = cand.numel()
     sub_it = 0
     while sub_it < max_iters and bool((sub >= 0).any()):
         sub = _double_sub(root, cand, sub)
         sub_it += 1
+        if counts:
+            seen[1, sub_it] = int((sub >= 0).sum())
     ok = ok & torch.where(valid, root < 0, True).all()
-    return (_out_bytes(root), ok.to(torch.int32).reshape(1),
-            torch.tensor([it, sub_it], dtype=torch.int32, device=root.device))
+    res = (_out_bytes(root), ok.to(torch.int32).reshape(1),
+           torch.tensor([it, sub_it], dtype=torch.int32, device=root.device))
+    return res + (seen.to(root.device),) if counts else res
 
 
-def resolve_foreign_roots_torch(root: torch.Tensor):
+def resolve_foreign_roots_torch(root: torch.Tensor, *, counts: bool = False):
     """Pointer doubling, two hops a round, until every root is a literal,
     at most :func:`foreign_max_iters` rounds; (out u8, ok i32[1], rounds
-    i32[2]: the rounds that began with a root unresolved, and 0). The
+    i32[2]: the rounds that began with a root unresolved, and 0), and with
+    ``counts`` the unresolved counts (2, max_iters + 1; row 1 zero). The
     unresolved count is read every ROUNDS_PER_CHECK rounds."""
     from .inflate import _double
 
     max_iters = foreign_max_iters(root.shape[0])
     run = torch.zeros((), dtype=torch.int32, device=root.device)
+    seen = torch.zeros(2, max_iters + 1, dtype=torch.int32, device=root.device)
+    seen[0, 0] = (root >= 0).sum()
     it = 0
     while it < max_iters and bool((root >= 0).any()):
         for _ in range(min(ROUNDS_PER_CHECK, max_iters - it)):
             run += (root >= 0).any()
             root = _double(root)
             it += 1
+            if counts:
+                seen[0, it] = (root >= 0).sum()
     ok = (root < 0).all()
-    return _out_bytes(root), ok.to(torch.int32).reshape(1), torch.stack([run, torch.zeros_like(run)])
+    res = (_out_bytes(root), ok.to(torch.int32).reshape(1), torch.stack([run, torch.zeros_like(run)]))
+    return res + (seen,) if counts else res
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +222,8 @@ def _as_int32(t: torch.Tensor) -> torch.Tensor:
 
 
 def expand_indexed_cuda(rec: torch.Tensor, *, B: int, N: int, S: int, R: int) -> torch.Tensor:
-    """Kernel P7's indexed entry: one cooperative launch; the contract of
+    """Kernel P7's indexed entry: one cooperative launch, a barrier between
+    the lanes' summaries and the positions; the contract of
     :func:`expand_indexed_torch`."""
     from .. import _build
 
@@ -216,10 +237,10 @@ def expand_indexed_cuda(rec: torch.Tensor, *, B: int, N: int, S: int, R: int) ->
                          f"1..{MAX_MAP - 1}")
     lib = _build.lib()
     root = torch.empty(NT, dtype=torch.int32, device=rec.device)
-    chunk_max = torch.empty(lib.compu_inflate_resolve_max_grid(), dtype=torch.int32,
-                            device=rec.device)
+    scratch = torch.empty(2 * L + lib.compu_inflate_resolve_max_grid(), dtype=torch.int32,
+                          device=rec.device)
     err = lib.compu_inflate_expand_indexed(rec.data_ptr(), L * R, R, NT, root.data_ptr(),
-                                           chunk_max.data_ptr(), _build.stream_handle(rec))
+                                           scratch.data_ptr(), _build.stream_handle(rec))
     _build.check_launch(err, "inflate_expand")
     return root
 
@@ -227,10 +248,11 @@ def expand_indexed_cuda(rec: torch.Tensor, *, B: int, N: int, S: int, R: int) ->
 def expand_foreign_cuda(outlens: torch.Tensor, is_lit: torch.Tensor, payload: torch.Tensor,
                         starts: torch.Tensor, stored_out: torch.Tensor,
                         stored_mask: torch.Tensor, *, total_out: int) -> torch.Tensor:
-    """Kernel P7's foreign entry: one launch, a warp 1,024 positions at a
-    time (a binary search over the starts, then rows of 32); the contract
-    of :func:`expand_foreign_torch` for starts that rise. The token fields
-    are taken as int32 (a device conversion where they are not)."""
+    """Kernel P7's foreign entry: one launch, a block a run of tiles of
+    1,024 positions; the contract of :func:`expand_foreign_torch` for
+    starts that rise and payloads below 2^18 (DEFLATE's are below 2^15).
+    The token fields are taken as int32 (a device conversion where they
+    are not)."""
     from .. import _build
 
     dev = stored_out.device
@@ -256,19 +278,27 @@ def expand_foreign_cuda(outlens: torch.Tensor, is_lit: torch.Tensor, payload: to
     return root
 
 
-def _launch_p6(root: torch.Tensor, ns, ok, *, N: int, max_iters: int, ksub: int):
-    """One cooperative launch of P6 over ``root``; (out, ok, rounds)."""
+def _launch_p6(root: torch.Tensor, ns, ok, *, N: int, max_iters: int, ksub: int,
+               counts: bool = False):
+    """One cooperative launch of P6 over ``root``; (out, ok, rounds), and
+    with ``counts`` the counter block's unresolved counts (2, max_iters +
+    1), a view of the launch's scratch."""
     from .. import _build
 
     NT, dev = root.shape[0], root.device
     if NT == 0:   # nothing to resolve: no launch
         flag = torch.ones(1, dtype=torch.int32, device=dev) if ok is None else ok.to(torch.int32)
-        return (torch.empty(0, dtype=torch.uint8, device=dev), flag.reshape(1),
-                torch.zeros(2, dtype=torch.int32, device=dev))
+        res = (torch.empty(0, dtype=torch.uint8, device=dev), flag.reshape(1),
+               torch.zeros(2, dtype=torch.int32, device=dev))
+        return res + (torch.zeros(2, max_iters + 1, dtype=torch.int32, device=dev),) \
+            if counts else res
     lib = _build.lib()
     ksub = min(ksub, NT)
-    scratch = torch.empty(2 * NT + 2 * ksub + lib.compu_inflate_resolve_max_grid()
-                          + lib.compu_inflate_resolve_ctr_words(), dtype=torch.int32, device=dev)
+    tiles = -(-NT // lib.compu_inflate_resolve_tile())
+    ctr_words = lib.compu_inflate_resolve_ctr_words()
+    scratch = torch.empty(2 * tiles * lib.compu_inflate_resolve_tile() + 3 * ksub + 3 * tiles
+                          + 3 * lib.compu_inflate_resolve_max_grid() + ctr_words,
+                          dtype=torch.int32, device=dev)
     out = torch.empty(NT, dtype=torch.uint8, device=dev)
     ok_out = torch.empty(1, dtype=torch.int32, device=dev)
     rounds = torch.empty(2, dtype=torch.int32, device=dev)
@@ -277,9 +307,13 @@ def _launch_p6(root: torch.Tensor, ns, ok, *, N: int, max_iters: int, ksub: int)
         None if ok is None else ok.data_ptr(), max_iters, ksub, scratch.data_ptr(),
         out.data_ptr(), ok_out.data_ptr(), rounds.data_ptr(), _build.stream_handle(root))
     _build.check_launch(err, "inflate_resolve")
-    return out, ok_out, rounds
-
-
+    if not counts:
+        return out, ok_out, rounds
+    # The counter block's first 2 * cap words: the whole-map counts, then
+    # the compacted set's, cap (the kernel's round limit) each.
+    cap = (ctr_words - 4) // 2
+    seen = scratch[scratch.numel() - ctr_words:][:2 * cap].view(2, cap)[:, :max_iters + 1]
+    return out, ok_out, rounds, seen
 def _check_root(root: torch.Tensor) -> None:
     from .. import _build
 
@@ -288,7 +322,8 @@ def _check_root(root: torch.Tensor) -> None:
         raise ValueError(f"root must hold fewer than {MAX_MAP} positions, got {root.shape[0]}")
 
 
-def resolve_indexed_cuda(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *, N: int):
+def resolve_indexed_cuda(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor, *, N: int,
+                         counts: bool = False):
     """Kernel P6 over an indexed batch's roots (B*N,) int32, with the
     blocks' lengths ``ns`` (B,) int32 and the scan's flag ``ok`` (a bool of
     one element), all on one CUDA device: one launch; the contract of
@@ -305,15 +340,16 @@ def resolve_indexed_cuda(root: torch.Tensor, ns: torch.Tensor, ok: torch.Tensor,
     if ns.device != root.device or ok.device != root.device:
         raise ValueError(f"ns and ok must be on {root.device}")
     max_iters, ksub = indexed_schedule(root.shape[0])
-    return _launch_p6(root, ns, ok, N=N, max_iters=max_iters, ksub=ksub)
+    return _launch_p6(root, ns, ok, N=N, max_iters=max_iters, ksub=ksub, counts=counts)
 
 
-def resolve_foreign_roots_cuda(root: torch.Tensor):
+def resolve_foreign_roots_cuda(root: torch.Tensor, *, counts: bool = False):
     """Kernel P6 over a foreign stream's roots (NT,) int32 on a CUDA
     device: one launch; the contract of :func:`resolve_foreign_roots_torch`."""
     _check_root(root)
     NT = root.shape[0]
-    return _launch_p6(root, None, None, N=NT, max_iters=foreign_max_iters(NT), ksub=0)
+    return _launch_p6(root, None, None, N=NT, max_iters=foreign_max_iters(NT), ksub=0,
+                      counts=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -342,14 +378,14 @@ def expand_foreign(outlens, is_lit, payload, starts, stored_out, stored_mask, *,
     return fn(outlens, is_lit, payload, starts, stored_out, stored_mask, total_out=total_out)
 
 
-def resolve_indexed(root, ns, ok, *, N: int):
+def resolve_indexed(root, ns, ok, *, N: int, counts: bool = False):
     """The indexed resolution: kernel P6 on CUDA, the plain version on the CPU."""
     fn = _route("resolve_indexed", root, resolve_indexed_cuda, resolve_indexed_torch)
-    return fn(root, ns, ok, N=N)
+    return fn(root, ns, ok, N=N, counts=counts)
 
 
-def resolve_foreign_roots(root):
+def resolve_foreign_roots(root, *, counts: bool = False):
     """The foreign resolution: kernel P6 on CUDA, the plain version on the CPU."""
     fn = _route("resolve_foreign_roots", root, resolve_foreign_roots_cuda,
                 resolve_foreign_roots_torch)
-    return fn(root)
+    return fn(root, counts=counts)

@@ -4,19 +4,26 @@ the CPU: ``compu_tpu/kernels/inflate_jax.py::_expand_and_resolve`` on the
 records of a CPU scan of ``test_torch_inflate``'s MIXED and FIXED batches
 at (K, RSTEPS) = (6, 26) and (1, 128), and on corrupt records (a lane 0
 whose first token starts late, a cycle; a match reaching before its block
-into the previous block's undefined tail; two records with one start);
+into the previous block's undefined tail; two records with one start;
+starts of 128-510, past the lane's own segment), runs of 3, 10 and 40
+lanes with no record (a token crossing lanes, the carry over them);
 ``compu_tpu/kernels/inflate_spec.py::resolve_foreign`` on the token lists
 the port's ``device_inflate`` records for two streams and on seeded token lists with
 stored ranges (one token's gap running over 300,000 stored bytes among
-them), an all-stored list and one that cannot resolve. ``ok`` and
+them), an all-stored list, one that cannot resolve, tokens at every
+1,024- and 4,096-position tile edge, stored runs over tile edges (tiles
+with no token start), lengths not a multiple of 4 and a tile that
+resolves rounds after its neighbours. ``ok`` and
 the defined bytes (each block's first ``ns[b]``, the whole stream) must be
 equal exactly (tolerance 0: integers). The int32 plain versions also equal
-the int64 ones the port had before (copied below), and their round counts
-follow the reference's schedule.
+the int64 ones the port had before (copied below), their round counts
+follow the reference's schedule, and so do their unresolved counts round
+by round (``counts=True``).
 
 Marked ``gpu`` (skipped without a card): each kernel equal to its plain
-version on the same cases, round counts included, and on random maps;
-the resolution from P3's launch to the result with no host synchronisation
+version on the same cases, round counts and unresolved counts included,
+on random maps and on the foreign lists as misaligned views; the
+resolution from P3's launch to the result with no host synchronisation
 (``torch.cuda.set_sync_debug_mode("error")``); one launch of P7 and of P6
 a batch.
 """
@@ -93,6 +100,31 @@ def _same_start(rec, ns):
     rec[5, 2] = (rec[5, 0] & 0x1FF) | (7 << 10)
 
 
+def _empty_lanes(rec, ns):
+    """Ten lanes of row 0 (10-19) and 40 of row 1 with no record: their
+    positions take the last token before them, carried over the empty
+    lanes (past the 32-lane window, and past a chunk of lanes)."""
+    rec[10:20] = inflate_scan.NO_TOKEN
+    rec[S + 30:S + 70] = inflate_scan.NO_TOKEN
+
+
+def _reaching_starts(rec, ns):
+    """Starts of 128-510, past the lane's own segment: a match of lane 40
+    at 300 (two lanes on), one of lane 41 at 510 (three on), a literal of
+    lane 45 at 200, each the last record of its lane."""
+    for lane, start, word in ((40, 300, 4 << 10), (41, 510, 9 << 10), (45, 200, 1 << 9 | 65 << 10)):
+        k = int(np.flatnonzero((rec[lane] & 0x1FF) < inflate_scan.NO_TOKEN)[-1])
+        rec[lane, k] = start | word
+
+
+def _crossing_token(rec, ns):
+    """A match of lane 60 whose positions run over lanes 61-63: those lanes
+    hold no record, so the token crosses three lane boundaries."""
+    rec[61:64] = inflate_scan.NO_TOKEN
+    k = int(np.flatnonzero((rec[60] & 0x1FF) < inflate_scan.NO_TOKEN)[-1])
+    rec[60, k] = (rec[60, k] & 0x1FF) | (2 << 10)
+
+
 # Per case: the batch, the scan's route and an edit of the records.
 CASES = {
     "mixed_6x26": (MIXED, "lut", None),
@@ -102,6 +134,9 @@ CASES = {
     "late_first": (MIXED, "lut", _late_first),
     "before_block": (MIXED, "lut", _before_block),
     "same_start": (MIXED, "dyn", _same_start),
+    "empty_lanes": (MIXED, "lut", _empty_lanes),
+    "reaching_starts": (MIXED, "lut", _reaching_starts),
+    "crossing_token": (MIXED, "dyn", _crossing_token),
 }
 
 
@@ -248,6 +283,37 @@ def test_truncated_compaction_equals_int64():
     assert rounds.tolist() == [max_iters, max_iters]
 
 
+@pytest.mark.parametrize("case", ["mixed_6x26", "late_first", "before_block", "empty_lanes"])
+def test_plain_counts_follow_the_schedule(case):
+    """``counts=True``: row 0 the unresolved valid positions before the
+    first whole-map round and after each, row 1 the compacted set's size
+    and its unresolved count after each of its rounds, 0 past the rounds;
+    the other outputs as without it."""
+    rec, ns, ok, B, R = indexed_case(case)
+    root = inflate_resolve.expand_indexed_torch(rec, B=B, N=BS, S=S, R=R)
+    out, got_ok, rounds, seen = inflate_resolve.resolve_indexed_torch(root, ns, ok, N=BS,
+                                                                      counts=True)
+    plain = inflate_resolve.resolve_indexed_torch(root, ns, ok, N=BS)
+    assert all(torch.equal(a, b) for a, b in zip((out, got_ok, rounds), plain))
+    max_iters, ksub = inflate_resolve.indexed_schedule(root.shape[0])
+    assert seen.dtype == torch.int32 and seen.shape == (2, max_iters + 1)
+    gp = torch.arange(root.shape[0])
+    valid = (gp % BS) < ns.to(torch.int64)[gp // BS]
+    r = root.to(torch.int64)
+    want = [int(((r >= 0) & valid).sum())]
+    for _ in range(int(rounds[0])):
+        r = inflate._double(r)
+        want.append(int(((r >= 0) & valid).sum()))
+    assert seen[0, :len(want)].tolist() == want and not seen[0, len(want):].any()
+    cand = torch.nonzero((r >= 0) & valid).reshape(-1)[:ksub]
+    sub = r[cand]
+    want = [cand.numel()]
+    for _ in range(int(rounds[1])):
+        sub = inflate._double_sub(r, cand, sub)
+        want.append(int((sub >= 0).sum()))
+    assert seen[1, :len(want)].tolist() == want and not seen[1, len(want):].any()
+
+
 @pytest.mark.parametrize("nt, ns", [(1, [1]), (5, [5]), (640, [100, 0, 128, 128, 77])])
 def test_resolve_indexed_small_maps(nt, ns):
     """Maps of one position, one partial block and blocks of 128 (ksub
@@ -294,6 +360,73 @@ def _lz_tokens(seed: int, n: int, stored_at=(), lead_stored: int = 0, stretch=(-
             b = int(rng.integers(0, 256))
             toks.append((1, 1, b, len(out)))
             out.append(b)
+    return _as_arrays(toks, stored, out)
+
+
+def _edge_tokens(seed: int, n: int, edge: int = 4096):
+    """A seeded token list whose tokens never straddle a multiple of
+    ``edge``, so a token starts exactly at every tile edge; a stored range
+    of 5,000 bytes starts at the second edge and spans the next one, and
+    the length is a multiple of neither 4 nor ``edge``."""
+    rng = np.random.default_rng(seed)
+    out, toks, stored = bytearray(), [], []
+    while len(out) < n:
+        if len(out) == 2 * edge:
+            stored.append((len(out), len(out) + 5000))
+            out += rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+            continue
+        room = edge - len(out) % edge
+        if len(out) and rng.random() < 0.6 and room >= 3:
+            dist = int(rng.integers(1, min(len(out), 32768) + 1))
+            length = min(int(rng.integers(3, 259)), room)
+            toks.append((length, 0, dist - 1, len(out)))
+            for _ in range(length):
+                out.append(out[-dist])
+        else:
+            b = int(rng.integers(0, 256))
+            toks.append((1, 1, b, len(out)))
+            out.append(b)
+    while len(out) % 4 == 0 or len(out) % edge == 0:
+        b = int(rng.integers(0, 256))
+        toks.append((1, 1, b, len(out)))
+        out.append(b)
+    return _as_arrays(toks, stored, out)
+
+
+def _late_tile():
+    """A map in which one 512-position tile resolves rounds after its
+    neighbours: [0, 512) literals, [512, 1024) 128 matches of 4 at distance
+    4 (chains of up to 128 hops back into the literals), [1024, 1536)
+    literals, [1536, 2048) a copy of [512, 1024) at distance 1,024, then
+    literals."""
+    rng = np.random.default_rng(8)
+    out, toks = bytearray(), []
+
+    def literals(k):
+        for b in rng.integers(0, 256, k).tolist():
+            toks.append((1, 1, b, len(out)))
+            out.append(b)
+
+    def match(dist, total, longest=258):
+        while total:
+            length = min(longest, total)
+            toks.append((length, 0, dist - 1, len(out)))
+            for _ in range(length):
+                out.append(out[-dist])
+            total -= length
+
+    literals(512)
+    match(4, 512, longest=4)
+    literals(512)
+    match(1024, 512)
+    literals(2101)
+    return _as_arrays(toks, [], out)
+
+
+def _as_arrays(toks, stored, out):
+    """The six arrays ``device_inflate`` hands ``resolve_foreign`` of a
+    token list (length, is_lit, payload, start) and stored ranges, the
+    length and the bytes."""
     t = np.asarray(toks, np.int64).reshape(-1, 4)
     stored_out = np.zeros(len(out), np.uint8)
     stored_mask = np.zeros(len(out), bool)
@@ -348,11 +481,18 @@ def foreign_case(case: str):
         return _all_stored()
     if case == "unresolvable":
         return _unresolvable()
+    if case == "tile_edges":
+        return _edge_tokens(10, 5 * 4096)
+    if case == "stored_over_tiles":   # 9,000 stored bytes from mid-tile: two empty tiles' edges
+        return _lz_tokens(11, 30_000, stretch=(150, 9000))
+    if case == "late_tile":
+        return _late_tile()
     raise KeyError(case)
 
 
 FOREIGN = ("gzip_fixture", "stored_and_flushes", "gaps_and_stored", "leading_stored",
-           "long_stored_stretch", "all_stored", "unresolvable")
+           "long_stored_stretch", "all_stored", "unresolvable", "tile_edges",
+           "stored_over_tiles", "late_tile")
 
 
 def foreign_tensors(case: str, device="cpu"):
@@ -432,6 +572,26 @@ def test_foreign_int32_plain_versions_equal_int64(case):
     assert n == limit or not bool((r >= 0).any())
 
 
+@pytest.mark.parametrize("case", FOREIGN)
+def test_plain_foreign_counts_follow_the_rounds(case):
+    """The foreign resolution's counts: every position's unresolved count
+    before the first round and after each (0 once all are resolved); row 1
+    zero."""
+    tensors, total_out, _ = foreign_tensors(case)
+    root = inflate_resolve.expand_foreign_torch(*tensors, total_out=total_out)
+    out, ok, rounds, seen = inflate_resolve.resolve_foreign_roots_torch(root, counts=True)
+    plain = inflate_resolve.resolve_foreign_roots_torch(root)
+    assert all(torch.equal(a, b) for a, b in zip((out, ok, rounds), plain))
+    assert seen.shape == (2, inflate_resolve.foreign_max_iters(total_out) + 1)
+    r = root.to(torch.int64)
+    want = [int((r >= 0).sum())]
+    for _ in range(seen.shape[1] - 1):
+        r = inflate._double(r)
+        want.append(int((r >= 0).sum()))
+    assert seen[0].tolist() == want and not seen[1].any()
+    assert int(rounds[0]) == sum(1 for c in want[:-1] if c)
+
+
 def test_dispatch_and_refusals():
     rec, ns, ok, B, R = indexed_case("fixed_6x26")
     with pytest.raises(ValueError, match="CUDA"):
@@ -477,32 +637,73 @@ def _equal(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CASES))
 def test_p7_p6_indexed_equal_plain_gpu(cuda, case):
+    """Roots, bytes, ok, rounds and the unresolved counts round by round."""
     rec, ns, ok, B, R = indexed_case(case)
     want_root = inflate_resolve.expand_indexed_torch(rec, B=B, N=BS, S=S, R=R)
     root = inflate_resolve.expand_indexed_cuda(rec.to(cuda), B=B, N=BS, S=S, R=R)
     torch.cuda.synchronize()
     assert torch.equal(root.cpu(), want_root)
-    want = inflate_resolve.resolve_indexed_torch(want_root, ns, ok, N=BS)
+    want = inflate_resolve.resolve_indexed_torch(want_root, ns, ok, N=BS, counts=True)
     kept = root.clone()
-    got = inflate_resolve.resolve_indexed_cuda(root, ns.to(cuda), ok.to(cuda), N=BS)
+    got = inflate_resolve.resolve_indexed_cuda(root, ns.to(cuda), ok.to(cuda), N=BS, counts=True)
     torch.cuda.synchronize()
-    assert _equal(got, want) and torch.equal(root, kept)
+    assert len(got) == 4 and _equal(got, want) and torch.equal(root, kept)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FOREIGN)
 def test_p7_p6_foreign_equal_plain_gpu(cuda, case):
+    """Roots, bytes, ok, rounds and the unresolved counts round by round."""
     tensors, total_out, raw = foreign_tensors(case)
     want_root = inflate_resolve.expand_foreign_torch(*tensors, total_out=total_out)
     root = inflate_resolve.expand_foreign_cuda(*(t.to(cuda) for t in tensors),
                                                total_out=total_out)
     torch.cuda.synchronize()
     assert torch.equal(root.cpu(), want_root)
-    got = inflate_resolve.resolve_foreign_roots_cuda(root)
+    got = inflate_resolve.resolve_foreign_roots_cuda(root, counts=True)
     torch.cuda.synchronize()
-    assert _equal(got, inflate_resolve.resolve_foreign_roots_torch(want_root))
+    assert _equal(got, inflate_resolve.resolve_foreign_roots_torch(want_root, counts=True))
     if raw is not None:
         assert got[0].cpu().numpy().tobytes() == raw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [0, 1, 3, 4095, 4096, 4097])
+def test_p7_foreign_misaligned_inputs_gpu(cuda, lead):
+    """The token list and the stored bytes and mask as views that start
+    ``lead`` elements into their storage (16-byte loads only where they are
+    aligned), and a map of a tile and a few positions."""
+    tensors, total_out, _ = foreign_tensors("tile_edges")
+    views = []
+    for t in tensors:
+        pad = torch.zeros(lead + t.shape[0], dtype=t.dtype)
+        pad[lead:] = t
+        views.append(pad.to(cuda)[lead:])
+    want = inflate_resolve.expand_foreign_torch(*tensors, total_out=total_out)
+    got = inflate_resolve.expand_foreign_cuda(*views, total_out=total_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["indexed", "foreign"])
+def test_p6_late_tile_equals_plain_gpu(cuda, kind):
+    """A tile that resolves rounds after its neighbours, with a tile that
+    copies from it: its second map still holds stale pointers the round it
+    resolves, which the next round's first hop must replace."""
+    tensors, total_out, raw = foreign_tensors("late_tile")
+    root = inflate_resolve.expand_foreign_torch(*tensors, total_out=total_out)
+    if kind == "foreign":
+        want = inflate_resolve.resolve_foreign_roots_torch(root, counts=True)
+        got = inflate_resolve.resolve_foreign_roots_cuda(root.to(cuda), counts=True)
+    else:
+        ns, ok = torch.tensor([total_out], dtype=torch.int32), torch.tensor(True)
+        want = inflate_resolve.resolve_indexed_torch(root, ns, ok, N=total_out, counts=True)
+        got = inflate_resolve.resolve_indexed_cuda(root.to(cuda), ns.to(cuda), ok.to(cuda),
+                                                   N=total_out, counts=True)
+    torch.cuda.synchronize()
+    assert _equal(got, want) and got[0].cpu().numpy().tobytes() == raw
+    assert int(want[2][0]) >= 4   # the chain of 512 hops takes rounds
 
 
 @pytest.mark.gpu
@@ -515,13 +716,13 @@ def test_p6_random_maps_equal_plain_gpu(cuda, nt, depth, cycles):
     N = nt // blocks
     ns = torch.from_numpy(np.random.default_rng(nt).integers(0, N + 1, blocks).astype(np.int32))
     ns[0] = N
-    want = inflate_resolve.resolve_indexed_torch(root, ns, torch.tensor(True), N=N)
+    want = inflate_resolve.resolve_indexed_torch(root, ns, torch.tensor(True), N=N, counts=True)
     got = inflate_resolve.resolve_indexed_cuda(root.to(cuda), ns.to(cuda),
-                                               torch.tensor(True, device=cuda), N=N)
+                                               torch.tensor(True, device=cuda), N=N, counts=True)
     torch.cuda.synchronize()
     assert _equal(got, want)
-    want = inflate_resolve.resolve_foreign_roots_torch(root)
-    got = inflate_resolve.resolve_foreign_roots_cuda(root.to(cuda))
+    want = inflate_resolve.resolve_foreign_roots_torch(root, counts=True)
+    got = inflate_resolve.resolve_foreign_roots_cuda(root.to(cuda), counts=True)
     torch.cuda.synchronize()
     assert _equal(got, want)
 
